@@ -1,0 +1,95 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own
+shared library, compiled for Hopper (``sm_90a``) at first use into
+``build/repro_torch/`` under the checkout (git-ignored).  Library names
+carry a hash of the source and the flags, so an edited source rebuilds and
+an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per source at
+once and waits for all of them.
+
+No ``--use_fast_math``: the kernels' ``/`` and ``log1pf`` must be the IEEE
+division and the library ``log1pf`` that PyTorch's own CUDA kernels use, or
+the bit-exact columns of ``capscore_agg`` would drift from the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("chunksort", "capscore_agg")
+
+# name -> ctypes.CDLL, filled by load(); one load per process
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, float]:
+    """Compile every missing library in parallel; returns seconds per name
+    (0.0 where a matching library was already built).  Raises with the
+    compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    seconds = {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, target, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, target, t0) in jobs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        (BUILD_DIR / f"{name}.nvcc.log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, target)  # atomic: a concurrent build never loads half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The built library ``name`` (building it first if needed), with
+    ``signatures`` ({function: (argtypes, restype)}) applied at first load."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        target = _target(name)
+        if not target.exists():
+            build_all((name,))
+        lib = ctypes.CDLL(str(target))
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _LIBS[name] = lib
+    return lib

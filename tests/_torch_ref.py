@@ -1,0 +1,87 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py).
+
+Importing this module makes the reference package importable on the
+installed JAX: ``repro.core.incremental`` and ``repro.stats.query`` do
+``from jax.experimental import enable_x64``, which current JAX no longer
+has, so the alias ``jax.experimental.enable_x64 = jax.enable_x64`` is set
+here, at import time.  Every test worker imports this module while it
+collects the test files, so the alias is in place before any test runs.
+The alias is process-wide.
+
+Tolerances, from one fact: ``log1p`` differs between the frameworks (torch's
+CPU ``log1p`` and XLA:CPU's disagree on about 15% of the 2^24 uniforms the
+samplers draw, by at most 2 ulp), so every f32 value derived from
+``e = -log1p(-u)`` cannot be bit-identical across the two packages:
+
+* integers, hashes, ``u``, KeyBase and the f64 query arithmetic: exact;
+* e-derived f32 values (scores, Delta, seeds, thresholds): rtol 1e-5, or
+  within 4 ulp where a single rounding separates them;
+* counts, which carry differences ``w - Delta``: rtol 1e-5 plus an absolute
+  4 ulp of the largest element weight, because a 1-ulp change of Delta
+  close to w is a large relative change of their difference;
+* discrete outcomes (entered flags, sampled key sets): equal, unless a
+  mismatch is explained by a deciding float pair within 4 ulp, which the
+  assertion message prints.
+"""
+from __future__ import annotations
+
+import jax
+import jax.experimental
+import numpy as np
+import pytest
+
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+
+RTOL = 1e-5
+MAX_ULP = 4
+
+
+def require_cuda():
+    """Skip the calling test unless a CUDA card is present (decided at run
+    time, never at import)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+
+
+def to_np(x) -> np.ndarray:
+    """A torch tensor, JAX array or numpy array as a host numpy array."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def ulp_distance(a, b) -> np.ndarray:
+    """Elementwise distance in f32 units in the last place (inf == inf)."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+
+    def ordered(x):
+        i = x.view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    d = np.abs(ordered(a) - ordered(b))
+    return np.where(a == b, 0, d)
+
+
+def assert_ulp_close(a, b, max_ulp=MAX_ULP, what="values"):
+    d = ulp_distance(a, b)
+    if d.size and d.max() > max_ulp:
+        i = np.unravel_index(int(np.argmax(d)), d.shape)
+        raise AssertionError(
+            f"{what}: {int((d > max_ulp).sum())} entries beyond {max_ulp} ulp; "
+            f"worst at {i}: {np.asarray(a)[i]!r} vs {np.asarray(b)[i]!r} "
+            f"({int(d[i])} ulp)")
+
+
+def count_atol(max_weight: float) -> float:
+    """Absolute slack of a count: 4 ulp of the largest element weight."""
+    return MAX_ULP * float(np.spacing(np.float32(max_weight)))
+
+
+def assert_rtol(a, b, rtol=RTOL, what="values"):
+    np.testing.assert_allclose(np.asarray(a, np.float64),
+                               np.asarray(b, np.float64), rtol=rtol, atol=0,
+                               err_msg=what)
