@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--profile-steps N] [--out-dir DIR]
+    python3 chip_smoke.py [--seed 0]
 
 Phases, each of which fails the run if it fails:
 
@@ -21,10 +21,16 @@ Phases, each of which fails the run if it fails:
              that every chunk step went through both kernels.
 4. state   — state_dict() mid-stream, loaded into a fresh service; both take
              the same rest of the stream and must agree exactly.
+5. profile — ``torch.profiler`` over 64 chunk steps of a warm service:
+             device time per kernel, launches per step, device busy share.
+
+The results and the profile are also written as JSON to ``chiprun_out/``
+in the checkout (git-ignored).
 
 It imports nothing of JAX or of the reference package ``repro``.  It exits
 non-zero without a CUDA device, and when run without the rest of the repo.
-The line before the last is the ``kernels`` JSON; the last line is
+The card's name and power limit (``nvidia-smi``) come two lines before the
+last, the ``kernels`` JSON on the line before the last, and the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -38,6 +44,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+OUT_DIR = ROOT / "chiprun_out"
+PROFILE_STEPS = 64
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and the
 # non-tensor-core f32 rate, the nearest listed rate for the scalar ALU work
@@ -93,13 +101,16 @@ def check_chunksort(device, rng) -> dict:
     from repro_torch.kernels.chunksort import ops
 
     cases = []
-    for n in (1, 7, 2047, 2049, 65536):
+    for n in (1, 7, 2047, 2048, 2049, 65536):
         cases.append(("random", rng.integers(0, max(2, n // 3), n)))
     cases.append(("ties", rng.integers(0, 3, 4096)))
     mix = rng.integers(-20, 50, 2049)
     mix[rng.random(2049) < 0.3] = EMPTY
     cases.append(("empty_mix", mix))
     cases.append(("all_empty", np.full(4097, EMPTY)))
+    # the main path's shape: one 2048-key Zipf chunk (no padding)
+    chunk = zipf_keys(rng, 2048, 1.2, 1 << 22)
+    cases.append(("zipf_chunk", chunk))
     for name, keys in cases:
         k = torch.from_numpy(keys.astype(np.int32)).to(device)
         got = ops.sort_with_perm_cuda(k)
@@ -109,8 +120,7 @@ def check_chunksort(device, rng) -> dict:
             raise AssertionError(f"chunksort differs from its plain version: {name} n={len(keys)}")
     log(f"chunksort: bit-identical to torch.sort(stable=True) on {len(cases)} cases")
 
-    # the main path's shape: one 2048-key Zipf chunk
-    keys = torch.from_numpy(zipf_keys(rng, 2048, 1.2, 1 << 22).astype(np.int32)).to(device)
+    keys = torch.from_numpy(chunk.astype(np.int32)).to(device)
     n = keys.shape[0]
     ms = cuda_ms(lambda: ops.sort_with_perm_cuda(keys))
     plain = cuda_ms(lambda: ops.sort_with_perm_ref(keys))
@@ -322,9 +332,9 @@ def run_state_round_trip(seed: int, n: int) -> None:
 
 
 def run_profile(seed: int, steps: int) -> dict:
-    """Optional (``--profile-steps N``): ``torch.profiler`` over N chunk
-    steps of a warm service; kernel time by name, launches per chunk step
-    and the device's busy share of the wall time."""
+    """``torch.profiler`` over ``steps`` chunk steps of a warm service;
+    kernel time by name, launches per chunk step and the device's busy
+    share of the wall time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -375,10 +385,6 @@ def run_profile(seed: int, steps: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile-steps", type=int, default=0,
-                    help="also profile this many chunk steps (0: skip)")
-    ap.add_argument("--out-dir", type=Path, default=None,
-                    help="also write the results as JSON files into this directory")
     args = ap.parse_args(argv)
 
     import torch
@@ -415,17 +421,14 @@ def main(argv=None) -> int:
         k["launches"] = main_path["launches"][k["name"]]
     run_state_round_trip(args.seed, 1 << 22)
 
-    profile = run_profile(args.seed, args.profile_steps) if args.profile_steps else None
-    if args.out_dir is not None:
-        args.out_dir.mkdir(parents=True, exist_ok=True)
-        (args.out_dir / "chip_smoke.json").write_text(json.dumps(
-            {"card": smi, "kernels": kernels, "main_path": main_path,
-             "seconds": time.perf_counter() - t_start}, indent=1))
-        if profile is not None:
-            (args.out_dir / "profile_chunk_step.json").write_text(
-                json.dumps(profile, indent=1))
-    print(json.dumps({"kernels": kernels}))
+    profile = run_profile(args.seed, PROFILE_STEPS)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
+        {"card": smi, "seed": args.seed, "kernels": kernels, "main_path": main_path,
+         "seconds": time.perf_counter() - t_start}, indent=1))
+    (OUT_DIR / "profile_chunk_step.json").write_text(json.dumps(profile, indent=1))
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -411,8 +411,7 @@ def compact_valid(valid, *arrays, fills):
     out = []
     for a, fill in zip(arrays, fills):
         a = a.expand(valid.shape)
-        out.append(torch.where(keep, a.gather(-1, src),
-                               torch.tensor(fill, dtype=a.dtype, device=dev)))
+        out.append(torch.where(keep, a.gather(-1, src), fill))
     return tuple(out)
 
 
@@ -429,7 +428,5 @@ def bottom_k_by(score, k, *arrays, fills):
     validk = torch.isfinite(sk)
     outs = [sk]
     for a, fill in zip(arrays, fills):
-        outs.append(torch.where(validk, a.gather(-1, idx),
-                                torch.tensor(fill, dtype=a.dtype,
-                                             device=a.device)))
+        outs.append(torch.where(validk, a.gather(-1, idx), fill))
     return tuple(outs)

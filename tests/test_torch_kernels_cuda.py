@@ -39,6 +39,8 @@ def _sort_case(name, n):
         return rng.integers(0, max(2, n // 3), n).astype(np.int32)
     if name == "ties":
         return rng.integers(0, 3, n).astype(np.int32)
+    if name == "zipf":  # the main path's chunk: Zipf(1.2) over 2^22 ids
+        return (rng.zipf(1.2, n) % (1 << 22)).astype(np.int32)
     if name == "empty_mix":
         keys = rng.integers(-20, 50, n).astype(np.int32)
         keys[rng.random(n) < 0.3] = EMPTY
@@ -47,6 +49,7 @@ def _sort_case(name, n):
 
 
 @pytest.mark.parametrize("name,n", [("random", 1), ("random", 7), ("random", 2047),
+                                    ("random", 2048), ("zipf", 2048),
                                     ("random", 2049), ("random", 65536),
                                     ("ties", 2048), ("ties", 65536),
                                     ("empty_mix", 2049), ("all_empty", 4097)])
