@@ -23,7 +23,7 @@ from .. import convert
 from ..kernels.capscore.ops import capscore_agg
 from . import vectorized as VZ
 from .samplers import SampleResult
-from .segments import EMPTY, chunk_order, normalize_keys
+from .segments import EMPTY, chunk_order, normalize_keys, searchsorted
 
 
 def resolve_device(device=None) -> torch.device:
@@ -187,6 +187,49 @@ def finalize_multi(state: SamplerState, spec: SamplerSpec,
 
 
 # ---------------------------------------------------------------------------
+# Multi-lane pass II: exact-weight accumulation over stacked bottom-k keys
+# ---------------------------------------------------------------------------
+
+
+def init_pass2(lane_keys, cap: int | None = None, *, device):
+    """Device-resident pass-II accumulator over per-lane sorted sample keys.
+
+    ``lane_keys``: one *sorted* int32 key array per lane (each <= k long, no
+    EMPTY).  Returns (stacked_keys [L, cap] int32 EMPTY-padded, acc [L, cap]
+    float64 zeros) on ``device``.  Run every shard of the stream through
+    ``pass2_accumulate``; read ``acc[j, :len(lane_keys[j])]`` at the end.
+    """
+    L = len(lane_keys)
+    cap = max(1, cap if cap is not None else max((len(k) for k in lane_keys),
+                                                 default=1))
+    keys = np.full((L, cap), EMPTY, np.int32)
+    for j, kk in enumerate(lane_keys):
+        keys[j, : len(kk)] = kk
+    return (torch.from_numpy(keys).to(device),
+            torch.zeros((L, cap), dtype=torch.float64, device=device))
+
+
+def pass2_accumulate(skeys, acc, keys, weights=None):
+    """Advance every lane's exact-weight accumulator by one stream batch
+    (host arrays; keys validated by ``normalize_keys``), all lanes in one
+    searchsorted + scatter-add.  ``acc`` is advanced in place and returned
+    (the reference donates it).  f64 sums: on the CPU they add in element
+    order like ``np.add.at``; on a card the scatter-add's atomics add in any
+    order, which is exact for integer weights."""
+    keys = normalize_keys(keys)
+    n = len(keys)
+    w = (np.ones(n, np.float64) if weights is None
+         else np.asarray(weights, np.float64).reshape(-1))
+    if len(w) != n:
+        raise ValueError(f"weights length {len(w)} != keys length {n}")
+    kd = torch.from_numpy(keys).to(skeys.device)
+    wd = torch.from_numpy(w).to(skeys.device)
+    loc = torch.clamp(searchsorted(skeys, kd), 0, skeys.shape[-1] - 1)
+    match = skeys.gather(-1, loc) == kd
+    return acc.scatter_add_(-1, loc, torch.where(match, wd, 0.0))
+
+
+# ---------------------------------------------------------------------------
 # Host-side wrapper: remainder buffering for unaligned batches
 # ---------------------------------------------------------------------------
 
@@ -239,8 +282,11 @@ class _RemainderBuffer:
 class MultiSampler:
     """l-grid streaming sampler: all lanes advance per batch.
 
-    ``device=None`` runs on the CUDA card (and raises without one); pass
-    ``device="cpu"`` for the plain PyTorch path.
+    Besides the fixed-k sketches, every lane carries the lossless
+    bottom-(k+1) (key, seed) summary of the observed stream, which makes
+    cross-host merges exact (see ``stats.service``); hosts that merge must
+    have distinct ``host_id``s.  ``device=None`` runs on the CUDA card (and
+    raises without one); pass ``device="cpu"`` for the plain PyTorch path.
     """
 
     def __init__(self, ls, *, k, chunk=2048, salt=0, host_id=None,
@@ -272,8 +318,47 @@ class MultiSampler:
             return self.state
         return update_multi(self.state, *self._upload(fk, fw), self.spec)
 
+    def absorb(self, other: "MultiSampler", *, k, merge_summaries: bool) -> None:
+        """Fold another host's sampler into this one (both flushed first):
+        the fixed-k tables through the 1-pass merge, and with
+        ``merge_summaries`` the lossless bottom-(k+1) summaries too."""
+        self.absorb_many([other], k=k, merge_summaries=merge_summaries)
+
+    def absorb_many(self, others, *, k, merge_summaries: bool) -> None:
+        """Fold any number of other hosts' samplers into this one at once,
+        equal to calling ``absorb`` on each in turn (the fixed-k fold is a
+        left fold).  Every remainder is flushed in its own host's element-id
+        namespace, never re-scored under this host's ids."""
+        from . import distributed as DZ  # deferred: distributed imports this module
+
+        others = list(others)
+        if not others:
+            return
+        states = [self.flushed_state()] + [o.flushed_state() for o in others]
+        mine = states[0]
+        table = DZ.merge_fixed_k_multi_states([s.table for s in states], mine.l,
+                                              mine.salt, k=k)
+        if merge_summaries:
+            bk_keys, bk_seeds = DZ.merge_bottomk_multi_states(
+                [(s.bk_keys, s.bk_seeds) for s in states],
+                cap=mine.bk_keys.shape[-1])
+        else:
+            bk_keys, bk_seeds = mine.bk_keys, mine.bk_seeds
+        self.state = SamplerState(
+            table=table, n_seen=sum(s.n_seen for s in states), l=mine.l,
+            salt=mine.salt, bk_keys=bk_keys, bk_seeds=bk_seeds)
+        # the remainders are inside the merged state now
+        self._n_real += sum(o._n_real for o in others)
+        self._rem = _RemainderBuffer(self.spec.chunk)
+
     def finalize(self) -> dict[float, SampleResult]:
         return finalize_multi(self.flushed_state(), self.spec, ls=self.ls)
+
+    def bottomk_summaries(self) -> tuple[np.ndarray, np.ndarray]:
+        """Host copies of the flushed per-lane bottom-(k+1) summaries:
+        ([L, k+1] keys, [L, k+1] seeds), seed-sorted."""
+        st = self.flushed_state()
+        return st.bk_keys.cpu().numpy(), st.bk_seeds.cpu().numpy()
 
     @property
     def n_observed(self) -> int:

@@ -237,35 +237,11 @@ def normalize_keys(keys) -> np.ndarray:
     return out
 
 
-def normalize_keys(keys) -> np.ndarray:
-    """Validate and convert stream keys to the canonical int32 form.
-
-    Every ingestion surface — the stateful ``observe``/``reconcile`` AND the
-    one-shot samplers (``vectorized._prep``) — funnels through this one helper
-    so keys can never be *silently* wrapped by an ``np.asarray(keys, np.int32)``
-    cast: non-integer dtypes, values outside int32 range, and the reserved
-    padding id ``EMPTY`` (int32 max) all raise instead of corrupting the
-    per-key randomness.
-    """
-    arr = np.asarray(keys).reshape(-1)
-    if arr.dtype == np.int32:
-        out = arr
-    else:
-        if not np.issubdtype(arr.dtype, np.integer):
-            raise TypeError(
-                f"stream keys must be integers, got dtype {arr.dtype} — "
-                "casting floats/objects would silently truncate key ids")
-        if arr.size and (arr.min() < -_EMPTY_INT - 1 or arr.max() > _EMPTY_INT):
-            bad = arr[(arr < -_EMPTY_INT - 1) | (arr > _EMPTY_INT)][0]
-            raise ValueError(
-                f"stream key {bad} outside int32 range — int32 is the key "
-                "domain of the sketches; remap ids before ingestion")
-        out = arr.astype(np.int32)
-    if out.size and out.max() == _EMPTY_INT:
-        raise ValueError(
-            f"stream key {_EMPTY_INT} is the reserved EMPTY padding id — "
-            "remap it before ingestion")
-    return out
+def sort_by_key(keys, *arrays):
+    """Stable-sort ``keys`` ascending along the last dim; apply the
+    permutation to all ``arrays`` (same shape as ``keys``)."""
+    ks, order = torch.sort(keys, dim=-1, stable=True)
+    return ks, tuple(a.gather(-1, order) for a in arrays)
 
 
 def stable_sort_with_perm(keys):
@@ -381,11 +357,29 @@ def kth_smallest(x, r):
 
 
 def segment_ids(sorted_keys):
-    """int32 segment ids (0..n_seg-1) of a sorted key array, plus the
-    first-of-segment flags; padding gets its own trailing segment."""
+    """int32 segment ids (0..n_seg-1) of a key array sorted along its last
+    dim, plus the first-of-segment flags; padding gets its own trailing
+    segment."""
     first = torch.ones_like(sorted_keys, dtype=torch.bool)
-    first[1:] = sorted_keys[1:] != sorted_keys[:-1]
-    return torch.cumsum(first, 0, dtype=torch.int32) - 1, first
+    first[..., 1:] = sorted_keys[..., 1:] != sorted_keys[..., :-1]
+    return torch.cumsum(first, -1, dtype=torch.int32) - 1, first
+
+
+def segment_reduce(vals, seg, reduce, init):
+    """Per-segment ``reduce`` ("sum", "amin", "amax") along the last dim into
+    as many slots as ``vals`` has entries; empty slots hold ``init`` (the
+    reference's ``jax.ops.segment_*`` with ``num_segments`` = length)."""
+    out = torch.full_like(vals, init)
+    return out.scatter_reduce(-1, seg.to(torch.int64).expand(vals.shape), vals,
+                              reduce=reduce, include_self=True)
+
+
+def scatter_unique(sorted_keys, seg):
+    """The unique keys of a key array sorted along its last dim, at
+    positions 0..n_seg-1 of an array as long as the input; later slots hold
+    ``EMPTY`` (the reference's ``scatter_unique`` without values)."""
+    return torch.full_like(sorted_keys, EMPTY).scatter(-1, seg.to(torch.int64),
+                                                       sorted_keys)
 
 
 def compact_valid(valid, *arrays, fills):

@@ -1,11 +1,13 @@
 """Chunked stream-sampler building blocks (port of ``repro/core/vectorized.py``).
 
-Only the pieces on the multi-lane ingest path: element randomness, the
-per-chunk aggregate record, the sorted-runs table merge, the batched
-eviction of Algorithm 5 (§5.2) and the key-sorted bottom-(k+1) summary fold.
-Every function works on a stack of L lanes: table leaves are ``[L, cap]``,
-per-lane scalars ``[L]`` (the reference's ``vmap`` over lanes written as a
-leading batch dimension).  Nothing here synchronises with the device.
+The pieces on the multi-lane ingest path and the two-pass path: element
+randomness and scores, the per-chunk aggregate record, the sorted-runs table
+merge, the batched eviction of Algorithm 5 (§5.2), the key-sorted
+bottom-(k+1) summary fold, and the pass-I bottom-k summaries and their
+lossless merge (Algorithm 1).  Every function works on a stack of L lanes:
+table leaves are ``[L, cap]``, per-lane scalars ``[L]`` (the reference's
+``vmap`` over lanes written as a leading batch dimension).  Nothing here
+synchronises with the device.
 """
 from __future__ import annotations
 
@@ -14,8 +16,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.capscore.ops import capscore
 from . import hashing as H
 from .samplers import (
+    SALT_BUCKET,
     SALT_ELEM,
     SALT_EVICT_R,
     SALT_EVICT_U,
@@ -25,12 +29,18 @@ from .samplers import (
 )
 from .segments import (
     EMPTY,
+    bottom_k_by,
+    chunk_order,
     compact_valid,
+    is_empty,
     is_live,
     kth_smallest,
     merge_sorted_runs_gather,
+    scatter_unique,
     searchsorted,
-    bottom_k_by,
+    segment_ids,
+    segment_reduce,
+    sort_by_key,
 )
 
 INF = float("inf")
@@ -60,6 +70,31 @@ def shard_eids(shard_no, idx):
     int32 bit pattern of ``hash(SALT_SHARD, shard_no, idx)``, equal to
     ``samplers.shard_eids_np`` after the uint32 cast both apply."""
     return to_int32(H.hash_combine(SALT_SHARD, shard_no, idx))
+
+
+def element_scores(kind: str, keys, eids, weights, l, salt):
+    """ElementScore(h) for each scheme; EMPTY-keyed elements get +inf.
+
+    ``l`` is a host number, rounded to f32 as the reference's f32 arithmetic
+    rounds it.  The continuous score is the ``capscore`` kernel's on a CUDA
+    tensor (its plain version on the CPU): the same hashes and IEEE
+    operations as the reference's inline form.
+    """
+    if kind == "distinct":
+        s = H.uniform01(H.hash_combine(keys, salt))
+    elif kind == "sh":
+        s = elem_uniform(eids, salt)
+    elif kind == "discrete":
+        l32 = np.float32(l)
+        u = H.uniform01(H.hash_combine(eids, SALT_BUCKET, salt))
+        bucket = torch.clamp((u * float(l32)).to(torch.int32),
+                             max=int(l32 - np.float32(1)))
+        s = H.uniform01(H.hash_combine(keys, bucket, salt))
+    elif kind == "continuous":
+        s = capscore(keys, eids, weights, l, INF, salt)[0]
+    else:
+        raise ValueError(kind)
+    return torch.where(is_empty(keys), INF, s)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +238,69 @@ def evict_table(table: TableState, *, k, l, salt) -> TableState:
         fills=(EMPTY, 0.0, INF, INF))
     return TableState(keys_c, counts_c, kb_c, seed_c, tau_e, table.step,
                       table.overflow)
+
+
+# ---------------------------------------------------------------------------
+# Pass-I bottom-k summaries (Algorithm 1) and their lossless merge
+# ---------------------------------------------------------------------------
+
+
+def chunk_bottomk_summary(keys, eids, weights, l, salt, *, kind):
+    """Per-chunk (unique key, min element score) summary for pass-1 bottom-k."""
+    scores = element_scores(kind, keys, eids, weights, l, salt)
+    ks, (sc,) = sort_by_key(keys, scores)
+    seg, _ = segment_ids(ks)
+    mins = segment_reduce(torch.where(is_live(ks), sc, INF), seg, "amin", INF)
+    ukeys = scatter_unique(ks, seg)
+    return ukeys, torch.where(is_live(ukeys), mins, INF)
+
+
+def merge_bottomk_summary(skeys, sseeds, ukeys, useeds, cap):
+    """Merge two (key, seed) summaries: min-seed per duplicate key,
+    bottom-cap, along the last dim.  Lossless for the bottom-cap of the
+    union (paper §3.1).  ``ukeys`` may be one [C] row shared by every lane
+    of ``skeys`` [L, cap] (a chunk's unique keys)."""
+    ukeys = ukeys.expand(skeys.shape[:-1] + ukeys.shape[-1:])
+    keys2 = torch.cat([skeys, ukeys], -1)
+    seeds2 = torch.cat([sseeds, useeds], -1)
+    ks2, (sd2,) = sort_by_key(keys2, seeds2)
+    seg2, _ = segment_ids(ks2)
+    sd_m = segment_reduce(sd2, seg2, "amin", INF)
+    uk2 = scatter_unique(ks2, seg2)
+    sd_m = torch.where(is_live(uk2), sd_m, INF)
+    sd_k, uk_k = bottom_k_by(sd_m, cap, uk2, fills=(EMPTY,))
+    return uk_k, sd_k
+
+
+def pass1_step(carry, keys, weights, eids, l, salt, *, kind, cap):
+    """Advance a bottom-k-by-seed summary (Alg 1 pass I) by one chunk."""
+    skeys, sseeds = carry
+    ukeys, mins = chunk_bottomk_summary(keys, eids, weights, l, salt, kind=kind)
+    return merge_bottomk_summary(skeys, sseeds, ukeys, mins, cap)
+
+
+def chunk_bottomk_summary_scored(keys, scores, order=None):
+    """Per-lane (unique key, min element score) chunk summaries from
+    precomputed multi-lane scores [L, C] (the ``capscore_multi`` path).
+
+    One sort of the chunk by key (``chunk_order``: the chunksort kernel on a
+    card) is shared by all lanes.  Returns (ukeys [C], mins [L, C]).
+    """
+    if order is None:
+        order = chunk_order(keys)
+    live = is_live(order.ks)
+    mins = segment_reduce(torch.where(live, scores[:, order.perm], INF),
+                          order.seg, "amin", INF)
+    return order.ukeys, torch.where(is_live(order.ukeys), mins, INF)
+
+
+def pass1_step_multi(carry, keys, scores, *, cap, order=None):
+    """Advance stacked per-lane bottom-cap summaries ([L, cap] keys/seeds)
+    by one chunk whose multi-lane scores were already computed
+    (``capscore_multi``)."""
+    skeys, sseeds = carry
+    ukeys, mins = chunk_bottomk_summary_scored(keys, scores, order)
+    return merge_bottomk_summary(skeys, sseeds, ukeys, mins, cap)
 
 
 # ---------------------------------------------------------------------------

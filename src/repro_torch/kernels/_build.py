@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own
-shared library, compiled for Hopper (``sm_90a``) at first use into
+shared library (the shared ``csrc/*.cuh`` headers count as part of every
+source), compiled for Hopper (``sm_90a``) at first use into
 ``build/repro_torch/`` under the checkout (git-ignored).  Library names
 carry a hash of the source and the flags, so an edited source rebuilds and
 an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per source at
@@ -9,7 +10,8 @@ once and waits for all of them.
 
 No ``--use_fast_math``: the kernels' ``/`` and ``log1pf`` must be the IEEE
 division and the library ``log1pf`` that PyTorch's own CUDA kernels use, or
-the bit-exact columns of ``capscore_agg`` would drift from the plain version.
+the bit-exact outputs of the capscore kernels would drift from their plain
+versions.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("chunksort", "capscore_agg")
+SOURCES = ("chunksort", "capscore_agg", "capscore")
 
 # name -> ctypes.CDLL, filled by load(); one load per process
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -43,7 +45,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's digest
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -11,7 +11,7 @@ import torch
 
 from ...core import hashing as H
 from ...core.samplers import SALT_ELEM, SALT_KEYBASE
-from ...core.segments import is_live
+from ...core.segments import is_live, segment_reduce
 
 _INF = float("inf")
 
@@ -40,12 +40,16 @@ def capscore_multi_ref(keys, eids, weights, ls, taus, salt):
     return score, delta, entry, kb
 
 
-def _seg_reduce(vals, seg, C, reduce, init):
-    """Per-segment reduction along the last dim (``[..., C]`` values)."""
-    out = torch.full(vals.shape[:-1] + (C,), init, dtype=vals.dtype,
-                     device=vals.device)
-    return out.scatter_reduce(-1, seg.to(torch.int64).expand(vals.shape), vals,
-                              reduce=reduce, include_self=True)
+def capscore_ref(keys, eids, weights, l, tau, salt):
+    """Single-lane (score, delta, entry), each [N], under scalar (l, tau):
+    lane 0 of ``capscore_multi_ref`` with ``l``/``tau`` rounded to f32 (the
+    reference's ``jnp.float32(l)``).  They become f32 tensors on the
+    elements' device, so the divisions stay tensor/tensor (PyTorch's CUDA
+    division by a host scalar multiplies by its reciprocal)."""
+    lt = torch.tensor([l, tau], dtype=torch.float32, device=keys.device)
+    score, delta, entry, _ = capscore_multi_ref(keys, eids, weights, lt[:1],
+                                                lt[1:], salt)
+    return score[0], delta[0], entry[0]
 
 
 def capscore_agg_ref(ks, eids, ws, seg, ls, taus, salt):
@@ -59,15 +63,15 @@ def capscore_agg_ref(ks, eids, ws, seg, ls, taus, salt):
     score, delta, entry, kb = capscore_multi_ref(ks, eids, ws, ls, taus, salt)
     live = is_live(ks)
     idx = torch.arange(C, device=ks.device)
-    w_total = _seg_reduce(torch.where(live, ws, 0.0), seg, C, "sum", 0.0)
+    w_total = segment_reduce(torch.where(live, ws, 0.0), seg, "sum", 0.0)
     es = entry.bool() & live
-    first_entry = _seg_reduce(torch.where(es, idx, C), seg, C, "amin", C)
+    first_entry = segment_reduce(torch.where(es, idx, C), seg, "amin", C)
     fe = first_entry.gather(-1, seg.to(torch.int64).expand(first_entry.shape))
     after = idx > fe
     at = (idx == fe) & es
     contrib_elem = torch.where(after, ws, 0.0) + torch.where(at, ws - delta, 0.0)
-    contrib = _seg_reduce(torch.where(live, contrib_elem, 0.0), seg, C, "sum", 0.0)
-    entered = _seg_reduce(es.to(torch.int32), seg, C, "amax", 0) > 0
-    min_score = _seg_reduce(torch.where(live, score, _INF), seg, C, "amin", _INF)
-    kb_min = _seg_reduce(torch.where(live, kb, _INF), seg, C, "amin", _INF)
+    contrib = segment_reduce(torch.where(live, contrib_elem, 0.0), seg, "sum", 0.0)
+    entered = segment_reduce(es.to(torch.int32), seg, "amax", 0) > 0
+    min_score = segment_reduce(torch.where(live, score, _INF), seg, "amin", _INF)
+    kb_min = segment_reduce(torch.where(live, kb, _INF), seg, "amin", _INF)
     return w_total, entered, contrib, kb_min, min_score

@@ -32,39 +32,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hash32.cuh"
+
 namespace {
+
+using hash32::hash3;
+using hash32::u01;
+using hash32::SALT_ELEM;
+using hash32::SALT_KEYBASE;
 
 constexpr int EMPTY_KEY = 2147483647;
 constexpr int NO_ENTRY = 2147483647;  // > any element index
-constexpr uint32_t C1 = 0x7FEB352Du;
-constexpr uint32_t C2 = 0x846CA68Bu;
-constexpr uint32_t GOLDEN = 0x9E3779B9u;
-constexpr uint32_t SEED0 = 0x243F6A88u;
-constexpr uint32_t SALT_ELEM = 0x01u;     // core/samplers.py
-constexpr uint32_t SALT_KEYBASE = 0x03u;
 constexpr int GROUP = 8;  // lanes scored per walk (register arrays)
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= C1;
-  x ^= x >> 15;
-  x *= C2;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t combine(uint32_t h, uint32_t p) {
-  return mix32(h ^ (p + GOLDEN + (h << 6) + (h >> 2)));
-}
-
-__device__ __forceinline__ uint32_t hash3(uint32_t a, uint32_t b, uint32_t c) {
-  return combine(combine(combine(SEED0, a), b), c);
-}
-
-__device__ __forceinline__ float u01(uint32_t h) {
-  return (static_cast<float>(h >> 8) + 0.5f) * (1.0f / 16777216.0f);
-}
 
 __device__ __forceinline__ int lower_bound(const int* seg, int n, int s) {
   int lo = 0, hi = n;

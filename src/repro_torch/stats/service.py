@@ -1,5 +1,5 @@
 """StreamStatsService: frequency-cap statistics over a stream (port of
-``repro/stats/service.py``, single host).
+``repro/stats/service.py``), with the exact multi-host mode.
 
 The service keeps one fixed-k continuous SH_l sketch per configured l plus
 each lane's lossless bottom-(k+1) summary, advanced by
@@ -15,9 +15,23 @@ remainder (< chunk elements) stays on host until the next batch aligns it;
 queries finalize the resident sketches lazily (cached until the next
 ``observe``).
 
-Not ported yet: multi-host ``merge``/``merge_many``, the exact second pass
-(``reconcile``/``exact_sketches``), checkpoint files and
-``MultiTenantStats``.
+Multi-host contract (as the reference's):
+
+* every host has a distinct ``StatsConfig.host_id`` (same k/ls/chunk/salt),
+  so element randomness never aliases across shards while key randomness
+  (KeyBase) is shared through the salt;
+* ``merge(other)`` (mode="exact", the default) min-merges each lane's
+  lossless bottom-(k+1) summary — exact for any split of elements across
+  hosts — and also folds the 1-pass fixed-k sketches;
+* ``reconcile(keys, weights)`` is the paper's pass II: stream every host's
+  shard back through it to accumulate the exact weights of the sampled
+  keys; once the whole stream is re-scanned, queries use the 2-pass
+  inverse-probability estimators (``exact_weights=True``);
+* ``merge(other, mode="approx")`` skips the summaries: cheapest, unbiased
+  for key-partitioned shards, biased when keys straddle hosts; exact
+  queries become unavailable.
+
+Not ported yet: checkpoint files and ``MultiTenantStats``.
 """
 from __future__ import annotations
 
@@ -31,6 +45,7 @@ import torch
 
 from ..core import freqfns, incremental
 from ..core.samplers import SampleResult
+from ..core.segments import EMPTY, normalize_keys
 from .query import BatchResult, Query, QueryEngine
 
 # the paper's guidance (preceding §6.1): a geometric l-grid with ratio
@@ -69,6 +84,16 @@ class StatsConfig:
     evict_every: int = 1
 
 
+@dataclasses.dataclass
+class _LaneSample:
+    """Frozen pass-1 outcome of one l lane (the pass-2 exact-weight
+    accumulators live stacked on the device, see ``reconcile``)."""
+
+    l: float
+    keys: np.ndarray       # sorted sampled keys (<= k)
+    tau: float             # (k+1)-smallest seed, inf if everything sampled
+
+
 class StreamStatsService:
     """Incremental multi-l sketch service.
 
@@ -85,10 +110,19 @@ class StreamStatsService:
             evict_every=config.evict_every, device=device)
         self.device = self._sampler.device
         self._results: dict[float, SampleResult] | None = None
-        self._engine_cache: QueryEngine | None = None
-        self._exact_ok = True  # summaries valid (kept for the state format)
+        self._engines: dict[bool, QueryEngine] = {}  # query plane, per path
+        self._lanes: list[_LaneSample] | None = None  # frozen pass-1 samples
+        self._recon_keys = None  # [L, kmax] device sorted sample keys
+        self._recon_acc = None   # [L, kmax] device f64 exact-weight accs
+        self._recon_n = 0  # elements re-scanned by the current reconcile
+        self._recon_discarded = False  # a begun reconcile was invalidated
+        self._exact_ok = True  # summaries valid (invalidated by approx merge)
         self._l_grid_warned = False  # pick_l out-of-grid warning (once)
         self._pick_l_cache: dict[float, float] = {}
+        # every host whose stream this service has absorbed (exact mode must
+        # never merge two streams sharing an element-id namespace)
+        self._host_ids: set[int] = (
+            set() if config.host_id is None else {config.host_id})
 
     # -- ingestion ---------------------------------------------------------
 
@@ -97,7 +131,17 @@ class StreamStatsService:
         validated by ``normalize_keys`` — never silently wrapped to int32."""
         self._sampler.observe(keys, weights)
         self._results = None
-        self._engine_cache = None
+        self._engines.clear()
+        self._invalidate_reconcile()
+
+    def _invalidate_reconcile(self) -> None:
+        """New elements / merges change the pass-1 sample: any accumulated
+        pass-II weights refer to a stale sample and are discarded."""
+        if self._lanes is not None:
+            self._lanes = None
+            self._recon_keys = self._recon_acc = None
+            self._recon_discarded = True
+            self._engines.pop(True, None)
 
     @property
     def n_observed(self) -> int:
@@ -124,12 +168,33 @@ class StreamStatsService:
         self._pick_l_cache[T] = l
         return l
 
-    def _engine(self) -> QueryEngine:
-        """The query plane over the current sketches (lazily built, cached
-        until the underlying sample changes)."""
-        if self._engine_cache is None:
-            self._engine_cache = QueryEngine(self.sketches(), device=self.device)
-        return self._engine_cache
+    @property
+    def _reconcile_complete(self) -> bool:
+        """Every observed element has been streamed back through reconcile."""
+        return self._lanes is not None and self._recon_n >= self.n_observed
+
+    def _use_exact(self, exact: bool | None) -> bool:
+        # auto mode trusts the exact path only once pass II covered the
+        # whole stream: a half-reconciled accumulator would report partial
+        # sums
+        use_exact = exact if exact is not None else self._reconcile_complete
+        if use_exact and not self._reconcile_complete:
+            raise ValueError(
+                f"exact query before reconcile completed: {self._recon_n} "
+                f"of {self.n_observed} observed elements re-scanned — "
+                "stream every shard through reconcile() first")
+        return use_exact
+
+    def _engine(self, exact: bool | None) -> QueryEngine:
+        """The query plane over the current sketches of the chosen path
+        (lazily built, cached until the underlying sample changes)."""
+        use_exact = self._use_exact(exact)
+        engine = self._engines.get(use_exact)
+        if engine is None:
+            sketches = self.exact_sketches() if use_exact else self.sketches()
+            engine = self._engines[use_exact] = QueryEngine(sketches,
+                                                            device=self.device)
+        return engine
 
     def _resolve_lane(self, q: Query) -> Query:
         if q.l is not None:
@@ -143,36 +208,176 @@ class StreamStatsService:
             l = max(self.config.ls)
         return Query(q.fn, q.segment, l)
 
-    def query_batch(self, queries) -> BatchResult:
+    def query_batch(self, queries, *, exact: bool | None = None) -> BatchResult:
         """Answer a whole batch of (FreqFn, segment[, lane]) queries in one
         device pass; unresolved lanes are picked per statistic like the
-        scalar wrappers.  Answers arrive with variance/CI diagnostics."""
+        scalar wrappers.  Answers arrive with variance/CI diagnostics.
+
+        ``exact=None`` uses the reconciled 2-pass samples once a reconcile
+        covered the whole stream, else the resident 1-pass sketches; True /
+        False force one path (True raises before reconcile completes)."""
         qs = [q if isinstance(q, Query) else Query(*q) for q in queries]
-        return self._engine().query_batch([self._resolve_lane(q) for q in qs])
+        engine = self._engine(exact)
+        return engine.query_batch([self._resolve_lane(q) for q in qs])
 
-    def query_cap(self, T: float, segment=None) -> float:
+    def query_cap(self, T: float, segment=None, *, exact: bool | None = None) -> float:
         """Estimate Q(cap_T, segment) (a one-query batch)."""
-        r = self.query_batch([Query(freqfns.cap(T), segment)])
+        r = self.query_batch([Query(freqfns.cap(T), segment)], exact=exact)
         return float(r.estimates[0])
 
-    def query_distinct(self, segment=None) -> float:
-        r = self.query_batch([Query(freqfns.distinct(), segment)])
+    def query_distinct(self, segment=None, *, exact: bool | None = None) -> float:
+        r = self.query_batch([Query(freqfns.distinct(), segment)], exact=exact)
         return float(r.estimates[0])
 
-    def query_total(self, segment=None) -> float:
-        r = self.query_batch([Query(freqfns.total(), segment)])
+    def query_total(self, segment=None, *, exact: bool | None = None) -> float:
+        r = self.query_batch([Query(freqfns.total(), segment)], exact=exact)
         return float(r.estimates[0])
 
-    def campaign_forecast(self, cap_per_user: float, segment=None) -> float:
+    def campaign_forecast(self, cap_per_user: float, segment=None, *,
+                          exact: bool | None = None) -> float:
         """The paper's motivating query: qualifying impressions under a
         per-user frequency cap, for the user segment H."""
-        return self.query_cap(cap_per_user, segment)
+        return self.query_cap(cap_per_user, segment, exact=exact)
 
     def hot_keys(self, top: int) -> np.ndarray:
         """Keys with the largest sampled counts in the largest-l sketch."""
         res = self.sketches()[max(self.config.ls)]
         order = np.argsort(-res.counts)
         return res.keys[order[:top]]
+
+    # -- multi-host merge ----------------------------------------------------
+
+    def merge(self, other: "StreamStatsService", mode: str = "exact") -> None:
+        """Absorb another host's state.  Both services must share
+        (k, ls, chunk, salt, evict_every).
+
+        mode="exact": also min-merge the lossless per-lane bottom-(k+1)
+        summaries — requires distinct ``host_id``s, otherwise element
+        randomness aliases and the merged summary is silently biased.  Run
+        ``reconcile`` over every shard afterwards to unlock exact queries.
+
+        mode="approx": the 1-pass fixed-k merge only; exact queries become
+        unavailable.
+        """
+        self.merge_many([other], mode=mode)
+
+    def merge_many(self, others, mode: str = "exact") -> None:
+        """Absorb any number of other hosts' states in one fold (the same
+        validation as ``merge``, across the whole group).  An empty sequence
+        is a no-op."""
+        others = list(others)
+        if not others:
+            return
+        for other in others:
+            if (tuple(other.config.ls) != tuple(self.config.ls)
+                    or other.config.k != self.config.k
+                    or other.config.salt != self.config.salt
+                    or other.config.chunk != self.config.chunk
+                    or other.config.evict_every != self.config.evict_every):
+                # salt especially: kb/seed/tau from different hash functions
+                # would union into a silently biased sketch; evict_every
+                # because the lane-wise table merge requires equal capacities
+                raise ValueError(
+                    "merge requires identical (k, ls, chunk, salt, evict_every) configs")
+        if mode not in ("exact", "approx"):
+            raise ValueError(f"unknown merge mode {mode!r}")
+        if mode == "exact":
+            if self.config.host_id is None or any(
+                    o.config.host_id is None for o in others):
+                raise ValueError(
+                    "exact merge requires a host_id on both services: shared "
+                    "element-id namespaces alias randomness across shards")
+            ids = set(self._host_ids)
+            for other in others:
+                overlap = ids & other._host_ids
+                if overlap:
+                    # hosts absorbed earlier count too
+                    raise ValueError(
+                        "exact merge requires distinct host_ids across ALL "
+                        f"absorbed hosts; {sorted(overlap)} appear on both sides")
+                ids |= other._host_ids
+            if not (self._exact_ok and all(o._exact_ok for o in others)):
+                raise ValueError(
+                    "exact merge unavailable: a prior mode='approx' merge "
+                    "invalidated the lossless summaries")
+        self._sampler.absorb_many([o._sampler for o in others], k=self.config.k,
+                                  merge_summaries=(mode == "exact"))
+        for other in others:
+            self._host_ids |= other._host_ids
+        if mode == "approx":
+            self._exact_ok = False
+        self._results = None
+        self._engines.clear()
+        self._invalidate_reconcile()
+
+    # -- exact second pass (paper pass II) -----------------------------------
+
+    def begin_reconcile(self) -> None:
+        """Freeze the pass-1 sample (per-lane bottom-k keys + threshold) and
+        reset the exact-weight accumulators.  Called implicitly by the first
+        ``reconcile``; must be called explicitly to restart after an
+        ``observe``/``merge`` discarded a begun reconcile."""
+        if not self._exact_ok:
+            raise ValueError(
+                "exact pass unavailable after a mode='approx' merge")
+        self._recon_discarded = False
+        self._recon_n = 0
+        self._engines.pop(True, None)
+        bk_keys, bk_seeds = self._sampler.bottomk_summaries()
+        k = self.config.k
+        self._lanes = []
+        for j, l in enumerate(self.config.ls):
+            keys_j, seeds_j = bk_keys[j], bk_seeds[j]
+            valid = keys_j != EMPTY
+            kk, ss = keys_j[valid], seeds_j[valid]
+            order = np.argsort(ss)
+            if len(kk) > k:
+                tau = float(ss[order[k]])
+                kk = kk[order[:k]]
+            else:
+                tau = math.inf
+            self._lanes.append(_LaneSample(l=float(l), keys=np.sort(kk), tau=tau))
+        self._recon_keys, self._recon_acc = incremental.init_pass2(
+            [lane.keys for lane in self._lanes], device=self.device)
+
+    def reconcile(self, keys, weights=None) -> None:
+        """Accumulate exact weights of the sampled keys from a batch of the
+        original stream (pass II).  Stream every shard's elements through
+        this (any batch sizes, any order) before exact queries.  All lanes
+        advance in one device pass per batch; keys are validated like
+        ``observe``'s."""
+        if self._lanes is None:
+            if self._recon_discarded:
+                # observe()/merge() changed the pass-1 sample after a
+                # reconcile began: silently re-beginning would drop the
+                # weights accumulated so far
+                raise ValueError(
+                    "reconcile was invalidated by observe()/merge(): the "
+                    "accumulated pass-II weights were discarded — call "
+                    "begin_reconcile() and re-stream EVERY shard")
+            self.begin_reconcile()
+        keys = normalize_keys(keys)
+        self._recon_acc = incremental.pass2_accumulate(
+            self._recon_keys, self._recon_acc, keys, weights)
+        self._recon_n += len(keys)
+        self._engines.pop(True, None)
+
+    def exact_sketches(self) -> dict[float, SampleResult]:
+        """Per-lane 2-pass SampleResults (exact weights) from the reconciled
+        accumulators; available only once pass II covered the whole
+        stream."""
+        if not self._reconcile_complete:
+            raise ValueError(
+                f"no complete exact sample: {self._recon_n} of "
+                f"{self.n_observed} observed elements re-scanned — run "
+                "reconcile(keys, weights) over every shard of the stream")
+        acc = self._recon_acc.cpu().numpy()
+        return {
+            lane.l: SampleResult(
+                keys=lane.keys, counts=acc[j, : len(lane.keys)].copy(),
+                tau=lane.tau, l=lane.l, kind="continuous", exact_weights=True)
+            for j, lane in enumerate(self._lanes)
+        }
 
     # -- state ---------------------------------------------------------------
 
@@ -193,4 +398,12 @@ class StreamStatsService:
         # blobs without summaries load with empty ones: exact mode stays off
         self._exact_ok = ("bk_keys" in d) and bool(exact_ok)
         self._results = None
-        self._engine_cache = None
+        self._engines.clear()
+        self._lanes = None
+        self._recon_keys = self._recon_acc = None
+        self._recon_n = 0
+        self._recon_discarded = False
+        # the absorbed host set is not serialized: a restored service knows
+        # only its own configured host_id
+        self._host_ids = (set() if self.config.host_id is None
+                          else {self.config.host_id})

@@ -19,6 +19,11 @@ samplers draw, by at most 2 ulp), so every f32 value derived from
 * counts, which carry differences ``w - Delta``: rtol 1e-5 plus an absolute
   4 ulp of the largest element weight, because a 1-ulp change of Delta
   close to w is a large relative change of their difference;
+* counts of a cross-host fixed-k merge: rtol 1e-5 plus 4 ulp of the
+  largest count a key could hold before the merge's eviction adjusts it
+  (the sum over hosts of their largest count in that lane), because the
+  adjustment subtracts an e-derived amount of that size and its rounding
+  stays in the difference;
 * discrete outcomes (entered flags, sampled key sets): equal, unless a
   mismatch is explained by a deciding float pair within 4 ulp, which the
   assertion message prints.
@@ -79,6 +84,13 @@ def assert_ulp_close(a, b, max_ulp=MAX_ULP, what="values"):
 def count_atol(max_weight: float) -> float:
     """Absolute slack of a count: 4 ulp of the largest element weight."""
     return MAX_ULP * float(np.spacing(np.float32(max_weight)))
+
+
+def merged_count_atol(host_counts) -> np.ndarray:
+    """Per-lane absolute slack [L, 1] of fixed-k merged counts, from the
+    hosts' [L, cap] count tables (see the module docstring)."""
+    bound = sum(np.asarray(c, np.float64).max(-1) for c in host_counts)
+    return np.array([[count_atol(b)] for b in bound])
 
 
 def assert_rtol(a, b, rtol=RTOL, what="values"):

@@ -12,6 +12,8 @@ stable argsort).  ``capscore_agg``: ``entered``, ``kb_min`` and
 ``min_score`` exact (the same IEEE divisions in the same order and the same
 ``log1pf`` as PyTorch's CUDA ``log1p``); ``w_total``/``contrib`` within rtol
 1e-5, because the kernel sums in another order than the plain version.
+``capscore_multi`` and ``capscore``: every output bit-identical (the same
+IEEE operations in the same order and the same ``log1pf``).
 """
 import numpy as np
 import pytest
@@ -97,3 +99,48 @@ def test_capscore_agg_kernel_matches_plain(C, L, empty_tail):
     for i, name in ((0, "w_total"), (2, "contrib")):
         np.testing.assert_allclose(got[i].cpu().numpy(), want[i].cpu().numpy(),
                                    rtol=1e-5, atol=0, err_msg=name)
+
+
+def _score_case(N, L, seed):
+    """Unsorted elements with EMPTY keys and non-unit weights; lanes mixing
+    tau = inf, tau*l > 1 and tau*l < 1, and an l that is not exact in f32."""
+    rng = np.random.default_rng(seed)
+    keys = (rng.zipf(1.2, N) % (4 * N + 7)).astype(np.int32)
+    keys[rng.random(N) < 0.05] = EMPTY
+    eids = rng.integers(-2**31, 2**31 - 1, N).astype(np.int32)
+    ws = (rng.random(N) * 3 + 0.05).astype(np.float32)
+    ws[: N // 2] = 1.0
+    base_l = np.array([1.0, 16.0, 256.0, 4096.0, 3.3, 64.0, 1024.0, 0.7], np.float32)
+    base_t = np.array([np.inf, 0.5, 1e-3, 2e-3, 0.9, np.inf, 5e-4, 0.2], np.float32)
+    return ([torch.from_numpy(a).cuda() for a in (keys, eids, ws)],
+            torch.from_numpy(np.resize(base_l, L)).cuda(),
+            torch.from_numpy(np.resize(base_t, L)).cuda())
+
+
+@pytest.mark.parametrize("L", [1, 4, 8])
+@pytest.mark.parametrize("N", [1, 7, 2047, 2048, 2049, 65536])
+def test_capscore_multi_kernel_matches_plain(N, L):
+    _require_cuda()
+    elems, ls, taus = _score_case(N, L, N * 10 + L)
+    before = cops.capscore_multi_cuda.launches
+    got = cops.capscore_multi(*elems, ls, taus, SALT)
+    torch.cuda.synchronize()
+    assert cops.capscore_multi_cuda.launches == before + 1
+    want = cops.capscore_multi_ref(*elems, ls, taus, SALT)
+    for g, w, name in zip(got, want, ("score", "delta", "entry", "kb")):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("l,tau", [(1.0, float("inf")), (3.3, 0.5), (256.0, 1e-3),
+                                   (0.7, 0.2)])
+@pytest.mark.parametrize("N", [1, 2049, 65536])
+def test_capscore_kernel_matches_plain(N, l, tau):
+    _require_cuda()
+    elems, _, _ = _score_case(N, 1, N + 3)
+    before = cops.capscore_cuda.launches
+    got = cops.capscore(*elems, l, tau, SALT)
+    torch.cuda.synchronize()
+    assert cops.capscore_cuda.launches == before + 1
+    want = cops.capscore_ref(*elems, l, tau, SALT)
+    for g, w, name in zip(got, want, ("score", "delta", "entry")):
+        assert g.dtype == w.dtype and torch.equal(g, w), name

@@ -143,3 +143,34 @@ def test_query_segments_match_reference():
     with pytest.raises(TypeError):
         TG.normalize_keys(np.array([1.5]))
     assert np.array_equal(TG.normalize_keys(keys), RG.normalize_keys(keys))
+
+
+@pytest.mark.parametrize("n,n_distinct,empty_frac",
+                         [(1, 5, 0.0), (300, 3, 0.2), (777, 5000, 0.3), (513, 1, 1.0)])
+def test_sort_by_key_and_scatter_unique_exact(n, n_distinct, empty_frac):
+    keys = _keys(n, n_distinct, n + 1, empty_frac)
+    vals = np.arange(n, dtype=np.float32)  # distinct payload: shows stability
+    rks, (rv,) = RG.sort_by_key(jnp.asarray(keys), jnp.asarray(vals))
+    tks, (tv,) = TG.sort_by_key(torch.from_numpy(keys), torch.from_numpy(vals))
+    assert np.array_equal(to_np(tks), np.asarray(rks))
+    assert np.array_equal(to_np(tv), np.asarray(rv))
+    rseg, _ = RG.segment_ids(rks)
+    tseg, _ = TG.segment_ids(tks)
+    assert np.array_equal(to_np(tseg), np.asarray(rseg))
+    ruk, _ = RG.scatter_unique(rks, rseg, 0.0)
+    assert np.array_equal(to_np(TG.scatter_unique(tks, tseg)), np.asarray(ruk))
+
+
+def test_segment_primitives_batch_over_lanes():
+    """Along the last dim of an [L, n] stack, each row equals its own 1-D
+    call (the reference's vmap)."""
+    rows = np.stack([_keys(200, 30, s, 0.1) for s in range(3)])
+    ks, _ = TG.sort_by_key(torch.from_numpy(rows))
+    seg, first = TG.segment_ids(ks)
+    uk = TG.scatter_unique(ks, seg)
+    for j in range(3):
+        ks1, _ = TG.sort_by_key(torch.from_numpy(rows[j]))
+        seg1, first1 = TG.segment_ids(ks1)
+        assert torch.equal(ks[j], ks1) and torch.equal(seg[j], seg1)
+        assert torch.equal(first[j], first1)
+        assert torch.equal(uk[j], TG.scatter_unique(ks1, seg1))

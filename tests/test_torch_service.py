@@ -1,11 +1,16 @@
 """Port parity: the whole slice end to end — ``StreamStatsService`` of the
 port against the reference's on the same stream: observe, sketches, one
 query batch of cap_T / distinct / total over several segments, hot keys,
-and the state dict carried between the packages.
+the state dict carried between the packages, and the multi-host mode
+(``merge_many`` exact and approx, ``reconcile``, exact queries and the
+reference's validation errors).  A port-only check holds the merged
+services' summaries equal to the distributed two-pass program's.
 
 Tolerances (tests/_torch_ref.py): sampled key sets and n_keys exact; tau and
 estimates within rtol 1e-5 (they derive from e-derived counts and
-thresholds); counts within rtol 1e-5 plus 4 ulp of the largest weight.
+thresholds); counts within rtol 1e-5 plus 4 ulp of the largest weight, and
+after a cross-host merge plus 4 ulp of the largest pre-merge count sum;
+reconciled pass-II weights exact (integer sums).
 """
 import numpy as np
 import pytest
@@ -14,7 +19,8 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 import _torch_ref  # noqa: E402,F401  (sets the reference's enable_x64 alias)
-from _torch_ref import RTOL, count_atol  # noqa: E402
+import _two_pass_case as case  # noqa: E402
+from _torch_ref import RTOL, count_atol, merged_count_atol  # noqa: E402
 
 from repro.core import freqfns as RF  # noqa: E402
 from repro.core import segments as RG  # noqa: E402
@@ -121,3 +127,195 @@ def test_service_rejects_bad_keys():
     with pytest.raises(ValueError):
         port.observe(np.array([2**40]))
     assert port.n_observed == 0
+
+
+# ---------------------------------------------------------------------------
+# multi-host mode
+# ---------------------------------------------------------------------------
+
+HOST_CFG = dict(k=case.K, ls=case.LS, chunk=case.CHUNK, salt=case.SALT)
+
+
+def _hosts(n_hosts, *, extra=(0, 100, 333)):
+    """Per host: a reference and a port service over the same shard (host_id
+    = host number), shard lengths not chunk-aligned, integer weights."""
+    keys, weights = case.stream(n_hosts)
+    shards = []
+    for h in range(n_hosts):
+        k, w = case.shard(keys, h), case.shard(weights, h)
+        shards.append((k[: len(k) - extra[h % 3]], w[: len(w) - extra[h % 3]]))
+    refs = [RS.StreamStatsService(RS.StatsConfig(**HOST_CFG, host_id=h))
+            for h in range(n_hosts)]
+    ports = [TS.StreamStatsService(TS.StatsConfig(**HOST_CFG, host_id=h), device="cpu")
+             for h in range(n_hosts)]
+    for (k, w), r, p in zip(shards, refs, ports):
+        r.observe(k, w)
+        p.observe(k, w)
+    return shards, refs, ports
+
+
+def _exact_queries(F, G):
+    qs = []
+    for seg in (None, G.HashBucket(8, 3, salt=7)):
+        qs += [(F.cap(T), seg) for T in (1.0, 2.0, 5.0, 64.0)]
+        qs += [(F.distinct(), seg), (F.total(), seg)]
+    return qs
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+def test_merge_many_matches_reference(mode):
+    shards, refs, ports = _hosts(3)
+    atol = merged_count_atol([r._sampler.flushed_state().table.counts for r in refs])
+    refs[0].merge_many(refs[1:], mode=mode)
+    ports[0].merge_many(ports[1:], mode=mode)
+    ref, port = refs[0], ports[0]
+    assert ref.n_observed == port.n_observed == sum(len(k) for k, _ in shards)
+    rs, ps = ref.sketches(), port.sketches()
+    for j, l in enumerate(rs):
+        assert np.array_equal(rs[l].keys, ps[l].keys), l
+        np.testing.assert_allclose(ps[l].counts, rs[l].counts, rtol=RTOL,
+                                   atol=atol[j, 0])
+        assert ps[l].tau == pytest.approx(rs[l].tau, rel=RTOL)
+    rk, rsd = ref._sampler.bottomk_summaries()
+    pk, psd = port._sampler.bottomk_summaries()
+    assert np.array_equal(rk, pk)
+    np.testing.assert_allclose(psd, rsd, rtol=RTOL)
+    if mode == "approx":
+        for svc in (ref, port):
+            with pytest.raises(ValueError, match="approx"):
+                svc.begin_reconcile()
+
+
+def test_reconcile_and_exact_queries_match_reference():
+    shards, refs, ports = _hosts(3)
+    refs[0].merge_many(refs[1:])
+    ports[0].merge_many(ports[1:])
+    ref, port = refs[0], ports[0]
+    for k, w in shards:  # ragged batches, shards in another order
+        for lo in range(0, len(k), 700):
+            ref.reconcile(k[lo:lo + 700], w[lo:lo + 700])
+            port.reconcile(k[lo:lo + 700], w[lo:lo + 700])
+    re_, pe = ref.exact_sketches(), port.exact_sketches()
+    assert list(re_) == list(pe)
+    for l in re_:
+        assert pe[l].exact_weights and re_[l].exact_weights
+        assert np.array_equal(re_[l].keys, pe[l].keys), l
+        assert np.array_equal(re_[l].counts, pe[l].counts), l  # integer sums
+        assert pe[l].tau == pytest.approx(re_[l].tau, rel=RTOL)
+    r = ref.query_batch(_exact_queries(RF, RG))  # auto: reconcile is complete
+    p = port.query_batch(_exact_queries(TF, TG))
+    assert np.array_equal(r.n_keys, p.n_keys)
+    np.testing.assert_allclose(p.estimates, r.estimates, rtol=RTOL)
+    np.testing.assert_allclose(p.stderr, r.stderr, rtol=RTOL)
+    forced = port.query_batch(_exact_queries(TF, TG), exact=True)
+    assert np.array_equal(forced.estimates, p.estimates)
+    one_pass = port.query_batch(_exact_queries(TF, TG), exact=False)
+    r1 = ref.query_batch(_exact_queries(RF, RG), exact=False)
+    np.testing.assert_allclose(one_pass.estimates, r1.estimates, rtol=RTOL)
+    assert port.query_cap(5.0) == pytest.approx(ref.query_cap(5.0), rel=RTOL)
+    assert port.campaign_forecast(5.0, exact=True) == pytest.approx(
+        ref.campaign_forecast(5.0, exact=True), rel=RTOL)
+    assert port.query_distinct(exact=True) == pytest.approx(
+        ref.query_distinct(exact=True), rel=RTOL)
+    assert port.query_total(exact=False) == pytest.approx(
+        ref.query_total(exact=False), rel=RTOL)
+
+
+def _merge_errors(S, n):
+    """The reference's validation cases on ``S`` (service module) fresh
+    services; each returns the callable that must raise."""
+    cfg = lambda **kw: S.StatsConfig(**HOST_CFG, **kw)  # noqa: E731
+    mk = (lambda c: S.StreamStatsService(c, device="cpu")) if S is TS else S.StreamStatsService
+    keys = np.arange(n) % 97
+
+    def svc(**kw):
+        s_ = mk(cfg(**kw))
+        s_.observe(keys)
+        return s_
+
+    def exact_after_approx():
+        a, b, c = svc(host_id=0), svc(host_id=1), svc(host_id=2)
+        a.merge(b, mode="approx")
+        return lambda: a.merge(c)
+
+    def overlap_absorbed():
+        a, b, c = svc(host_id=0), svc(host_id=1), svc(host_id=1)
+        a.merge(b)
+        return lambda: a.merge(c)
+
+    def query_before_reconcile():
+        a = svc(host_id=0)
+        a.reconcile(keys[: n // 2])
+        return lambda: a.query_cap(5.0, exact=True)
+
+    def sketches_before_reconcile():
+        a = svc(host_id=0)
+        a.begin_reconcile()
+        return a.exact_sketches
+
+    def reconcile_invalidated():
+        a = svc(host_id=0)
+        a.reconcile(keys)
+        a.observe(keys[:10])
+        return lambda: a.reconcile(keys)
+
+    return {
+        "no_host_id": (lambda: svc().merge(svc(host_id=1)), "host_id"),
+        "overlapping_host_ids": (lambda: svc(host_id=3).merge(svc(host_id=3)),
+                                 "distinct host_ids"),
+        "overlap_with_absorbed": (overlap_absorbed(), "distinct host_ids"),
+        "exact_after_approx": (exact_after_approx(), "approx"),
+        "config_mismatch": (lambda: svc(host_id=0).merge(mk(S.StatsConfig(
+            k=case.K, ls=case.LS, chunk=case.CHUNK, salt=1, host_id=1))), "identical"),
+        "unknown_mode": (lambda: svc(host_id=0).merge(svc(host_id=1), mode="x"),
+                         "unknown merge mode"),
+        "query_before_reconcile": (query_before_reconcile(), "before reconcile completed"),
+        "sketches_before_reconcile": (sketches_before_reconcile(), "no complete exact"),
+        "reconcile_invalidated": (reconcile_invalidated(), "invalidated"),
+    }
+
+
+@pytest.mark.parametrize("case_name", ["no_host_id", "overlapping_host_ids",
+                                       "overlap_with_absorbed", "exact_after_approx",
+                                       "config_mismatch", "unknown_mode",
+                                       "query_before_reconcile",
+                                       "sketches_before_reconcile",
+                                       "reconcile_invalidated"])
+def test_multi_host_validation_matches_reference(case_name):
+    messages = []
+    for S in (RS, TS):
+        fn, match = _merge_errors(S, 700)[case_name]
+        with pytest.raises(ValueError, match=match) as err:
+            fn()
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+
+
+def test_merged_services_equal_two_pass_program(tmp_path):
+    """Port only: P services (host_id = rank) over the program's shards,
+    merged exactly, hold the same per-lane bottom-(k+1) summaries as the
+    distributed program, and their reconciled weights equal its pass II."""
+    P = 4
+    keys, weights = case.stream(P)
+    svcs = [TS.StreamStatsService(TS.StatsConfig(**HOST_CFG, host_id=r), device="cpu")
+            for r in range(P)]
+    for r, svc in enumerate(svcs):
+        svc.observe(case.shard(keys, r), case.shard(weights, r))
+    svcs[0].merge_many(svcs[1:])
+    for r in range(P):
+        svcs[0].reconcile(case.shard(keys, r), case.shard(weights, r))
+    prog = case.run_port_program(P, tmp_path)[0]
+    bk_keys, bk_seeds = svcs[0]._sampler.bottomk_summaries()
+    exact = svcs[0].exact_sketches()
+    for merge in case.MERGES:
+        pk = prog[f"multi_{merge}_keys"]
+        ps = prog[f"multi_{merge}_seeds"]
+        pw = prog[f"multi_{merge}_weights"]
+        for j, l in enumerate(case.LS):
+            o = np.argsort(bk_keys[j], kind="stable")
+            assert np.array_equal(bk_keys[j][o], pk[j]), (merge, l)
+            assert np.array_equal(bk_seeds[j][o], ps[j]), (merge, l)
+            res = exact[l]
+            loc = np.searchsorted(pk[j], res.keys)
+            assert np.array_equal(pk[j][loc], res.keys)
+            assert np.array_equal(pw[j][loc].astype(np.float64), res.counts), (merge, l)
