@@ -250,7 +250,7 @@ def check_capscore_multi(device, rng) -> dict:
     import torch
     from repro_torch.kernels.capscore import ops
 
-    n_cases = 0
+    n_cases, err = 0, 0.0
     for N in (1, 7, 2047, 2048, 2049, 65536):
         for L in (1, 4, 8):
             elems, ls, taus = _score_inputs(device, rng, N, L)
@@ -261,6 +261,7 @@ def check_capscore_multi(device, rng) -> dict:
                 if g.dtype != w.dtype or not torch.equal(g, w):
                     raise AssertionError(f"capscore_multi {name} differs from the plain "
                                          f"version (N={N}, L={L})")
+            err = max(err, _max_abs_err(got, want))
             n_cases += 1
     log(f"capscore_multi: every output bit-identical to the plain version on "
         f"{n_cases} cases (N in 1..65536, L in 1, 4, 8)")
@@ -278,7 +279,7 @@ def check_capscore_multi(device, rng) -> dict:
     return {"name": "capscore_multi", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/capscore.cu",
             "replaces": "src/repro/kernels/capscore/capscore.py:270",
-            "launches": None, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
@@ -287,7 +288,7 @@ def check_capscore(device, rng) -> dict:
     from repro_torch.kernels.capscore import ops
 
     lanes = ((1.0, float("inf")), (16.0, 0.5), (256.0, 1e-3), (3.3, 0.9), (0.7, 0.2))
-    n_cases = 0
+    n_cases, err = 0, 0.0
     for N in (1, 7, 2047, 2048, 2049, 65536):
         elems, _, _ = _score_inputs(device, rng, N, 1)
         for l, tau in lanes:
@@ -298,6 +299,7 @@ def check_capscore(device, rng) -> dict:
                 if g.dtype != w.dtype or not torch.equal(g, w):
                     raise AssertionError(f"capscore {name} differs from the plain "
                                          f"version (N={N}, l={l}, tau={tau})")
+            err = max(err, _max_abs_err(got, want))
             n_cases += 1
     log(f"capscore: every output bit-identical to the plain version on {n_cases} "
         "cases")
@@ -311,7 +313,7 @@ def check_capscore(device, rng) -> dict:
     return {"name": "capscore", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/capscore.cu",
             "replaces": "src/repro/kernels/capscore/capscore.py:166",
-            "launches": None, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
@@ -511,19 +513,6 @@ def _synced(fn, barrier=True):
     return out, time.perf_counter() - t0
 
 
-def _alone(fn, rank: int, P: int) -> float:
-    """Seconds of ``fn()`` on this rank while every other rank waits at a
-    barrier (ranks take turns), so the card runs one rank's work only."""
-    import torch.distributed as dist
-
-    sec = 0.0
-    for r in range(P):
-        if r == rank:
-            _, sec = _synced(fn, barrier=False)
-        dist.barrier()
-    return sec
-
-
 def _counters():
     from repro_torch.kernels.capscore import ops as cops
     from repro_torch.kernels.chunksort import ops as sops
@@ -612,11 +601,7 @@ def _distributed_rank(rank: int, P: int, seed: int, n: int, batch: int,
         lambda: DZ.allgather_merge_bottomk_multi(*carry, cfg.k + 1))
     sk = torch.sort(merged[0], dim=-1).values
     _, out["pass2_s"] = _synced(lambda: DZ.pass2_shard_multi(kd, wd, sk))
-    # the same local work with the card to one rank: what sharing it costs
-    out["pass1_alone_s"] = _alone(lambda: DZ.pass1_local_multi(
-        kd, wd, ls=ls, salt=cfg.salt, k=cfg.k, chunk=cfg.chunk), rank, P)
     out["pass2_local_s"] = _synced(lambda: DZ.pass2_local(kd, wd, sk))[1]
-    out["pass2_local_alone_s"] = _alone(lambda: DZ.pass2_local(kd, wd, sk), rank, P)
     del kd, wd, carry, merged, sk
 
     # the service path on the same shard, this rank's host id
@@ -731,9 +716,7 @@ def _merge_and_check(gathered, prog, keys, cfg, batch) -> dict:
         "merge_tree_ms": slowest("merge_tree_s") * 1e3,
         "merge_allgather_ms": slowest("merge_allgather_s") * 1e3,
         "pass2_ms": slowest("pass2_s") * 1e3,
-        "pass1_alone_ms_per_chunk_step": slowest("pass1_alone_s") / steps * 1e3,
         "pass2_local_ms": slowest("pass2_local_s") * 1e3,
-        "pass2_local_alone_ms": slowest("pass2_local_alone_s") * 1e3,
         "service_observe_s": slowest("service_observe_s"),
         "service_merge_ms": t_merge * 1e3, "service_reconcile_ms": t_recon * 1e3,
         "summary_cut_ties": ties, "worst_abs_z": worst,
@@ -768,9 +751,7 @@ def run_distributed(seed: int, n: int, batch: int) -> dict:
         f"{out['program_single_s']:.3f} s); pass I {out['pass1_ms_per_chunk_step']:.4f} ms "
         f"per chunk step, merge {out['merge_tree_ms']:.3f} ms tree / "
         f"{out['merge_allgather_ms']:.3f} ms all-gather, pass II {out['pass2_ms']:.3f} ms "
-        f"(local part {out['pass2_local_ms']:.3f} ms); one rank alone on the card: pass I "
-        f"{out['pass1_alone_ms_per_chunk_step']:.4f} ms per chunk step, pass II local part "
-        f"{out['pass2_local_alone_ms']:.3f} ms; "
+        f"(local part {out['pass2_local_ms']:.3f} ms); "
         f"service observe {out['service_observe_s']:.2f} s, merge "
         f"{out['service_merge_ms']:.2f} ms, reconcile {out['service_reconcile_ms']:.2f} ms; "
         f"max_memory_allocated per rank program {out['max_memory_allocated_program']} B, "

@@ -191,17 +191,17 @@ def finalize_multi(state: SamplerState, spec: SamplerSpec,
 # ---------------------------------------------------------------------------
 
 
-def init_pass2(lane_keys, cap: int | None = None, *, device):
+def init_pass2(lane_keys, *, device):
     """Device-resident pass-II accumulator over per-lane sorted sample keys.
 
     ``lane_keys``: one *sorted* int32 key array per lane (each <= k long, no
     EMPTY).  Returns (stacked_keys [L, cap] int32 EMPTY-padded, acc [L, cap]
-    float64 zeros) on ``device``.  Run every shard of the stream through
-    ``pass2_accumulate``; read ``acc[j, :len(lane_keys[j])]`` at the end.
+    float64 zeros) on ``device``, ``cap`` the longest lane's length.  Run
+    every shard of the stream through ``pass2_accumulate``; read
+    ``acc[j, :len(lane_keys[j])]`` at the end.
     """
     L = len(lane_keys)
-    cap = max(1, cap if cap is not None else max((len(k) for k in lane_keys),
-                                                 default=1))
+    cap = max(1, max((len(k) for k in lane_keys), default=1))
     keys = np.full((L, cap), EMPTY, np.int32)
     for j, kk in enumerate(lane_keys):
         keys[j, : len(kk)] = kk

@@ -279,27 +279,26 @@ def pass1_step(carry, keys, weights, eids, l, salt, *, kind, cap):
     return merge_bottomk_summary(skeys, sseeds, ukeys, mins, cap)
 
 
-def chunk_bottomk_summary_scored(keys, scores, order=None):
+def chunk_bottomk_summary_scored(keys, scores):
     """Per-lane (unique key, min element score) chunk summaries from
     precomputed multi-lane scores [L, C] (the ``capscore_multi`` path).
 
     One sort of the chunk by key (``chunk_order``: the chunksort kernel on a
     card) is shared by all lanes.  Returns (ukeys [C], mins [L, C]).
     """
-    if order is None:
-        order = chunk_order(keys)
+    order = chunk_order(keys)
     live = is_live(order.ks)
     mins = segment_reduce(torch.where(live, scores[:, order.perm], INF),
                           order.seg, "amin", INF)
     return order.ukeys, torch.where(is_live(order.ukeys), mins, INF)
 
 
-def pass1_step_multi(carry, keys, scores, *, cap, order=None):
+def pass1_step_multi(carry, keys, scores, *, cap):
     """Advance stacked per-lane bottom-cap summaries ([L, cap] keys/seeds)
     by one chunk whose multi-lane scores were already computed
     (``capscore_multi``)."""
     skeys, sseeds = carry
-    ukeys, mins = chunk_bottomk_summary_scored(keys, scores, order)
+    ukeys, mins = chunk_bottomk_summary_scored(keys, scores)
     return merge_bottomk_summary(skeys, sseeds, ukeys, mins, cap)
 
 

@@ -19,11 +19,12 @@ samplers draw, by at most 2 ulp), so every f32 value derived from
 * counts, which carry differences ``w - Delta``: rtol 1e-5 plus an absolute
   4 ulp of the largest element weight, because a 1-ulp change of Delta
   close to w is a large relative change of their difference;
-* counts of a cross-host fixed-k merge: rtol 1e-5 plus 4 ulp of the
-  largest count a key could hold before the merge's eviction adjusts it
-  (the sum over hosts of their largest count in that lane), because the
-  adjustment subtracts an e-derived amount of that size and its rounding
-  stays in the difference;
+* counts of a cross-host fixed-k merge: rtol 1e-5 plus, per key, 4 ulp
+  of the largest count that key could hold before the merge's eviction
+  adjusts it (its hosts' counts summed, plus at most l per duplicate-entry
+  clip), because the adjustment subtracts an e-derived amount of that size
+  and its rounding stays in the difference; plus each host's own count
+  slack where the two packages ingested the shards separately;
 * discrete outcomes (entered flags, sampled key sets): equal, unless a
   mismatch is explained by a deciding float pair within 4 ulp, which the
   assertion message prints.
@@ -40,6 +41,7 @@ if not hasattr(jax.experimental, "enable_x64"):
 
 RTOL = 1e-5
 MAX_ULP = 4
+EMPTY = 2**31 - 1  # the samplers' empty-slot key
 
 
 def require_cuda():
@@ -86,11 +88,46 @@ def count_atol(max_weight: float) -> float:
     return MAX_ULP * float(np.spacing(np.float32(max_weight)))
 
 
-def merged_count_atol(host_counts) -> np.ndarray:
-    """Per-lane absolute slack [L, 1] of fixed-k merged counts, from the
-    hosts' [L, cap] count tables (see the module docstring)."""
-    bound = sum(np.asarray(c, np.float64).max(-1) for c in host_counts)
-    return np.array([[count_atol(b)] for b in bound])
+def merged_count_atol(host_tables, ls, merged_keys, host_atol=0.0) -> list[np.ndarray]:
+    """Per-key absolute slack of fixed-k merged counts (see the module
+    docstring): for lane j, one entry per key of ``merged_keys[j]``.
+
+    ``host_tables``: each host's (keys, counts) pair of [L, cap] tables.
+    A key's bound is the sum of its hosts' counts plus one entry clip of at
+    most ``l`` per extra host holding it: the largest count it can carry
+    before the merge's eviction subtracts from it.  ``host_atol`` is the
+    slack each host's count already carries (``count_atol`` where the two
+    packages ingested the shard separately, 0 where they share a state);
+    it adds once per host holding the key."""
+    out = []
+    for j, mk in enumerate(merged_keys):
+        mk = np.asarray(mk)
+        total = np.zeros(mk.shape, np.float64)
+        hosts = np.zeros(mk.shape, np.float64)
+        for keys, counts in host_tables:
+            hk, hc = np.asarray(keys[j]), np.asarray(counts[j], np.float64)
+            order = np.argsort(hk, kind="stable")
+            hk, hc = hk[order], hc[order]
+            at = np.clip(np.searchsorted(hk, mk), 0, len(hk) - 1)
+            hit = (hk[at] == mk) & (mk != EMPTY)
+            total += np.where(hit, hc[at], 0.0)
+            hosts += hit
+        bound = total + np.maximum(hosts - 1.0, 0.0) * float(ls[j])
+        out.append(MAX_ULP * np.spacing(bound.astype(np.float32)).astype(np.float64)
+                   + hosts * host_atol)
+    return out
+
+
+def assert_counts_close(a, b, atol, what="counts"):
+    """``|a - b| <= atol + RTOL * |b|`` elementwise, ``atol`` an array of
+    per-entry slacks (``merged_count_atol``)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    bad = ~(np.abs(a - b) <= atol + RTOL * np.abs(b))
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} entries beyond rtol {RTOL} + per-key atol; "
+            f"first at {i}: {a[i]!r} vs {b[i]!r} (atol {float(atol[i])!r})")
 
 
 def assert_rtol(a, b, rtol=RTOL, what="values"):

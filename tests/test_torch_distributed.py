@@ -26,8 +26,8 @@ pytest.importorskip("jax")
 import _torch_ref  # noqa: E402,F401  (sets the reference's enable_x64 alias)
 import _two_pass_case as case  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from _torch_ref import (MAX_ULP, RTOL, assert_ulp_close, merged_count_atol,  # noqa: E402
-                        to_np, ulp_distance)
+from _torch_ref import (MAX_ULP, RTOL, assert_counts_close, assert_ulp_close,  # noqa: E402
+                        merged_count_atol, to_np, ulp_distance)
 
 from repro.core import distributed as RD  # noqa: E402
 from repro.core import incremental as RI  # noqa: E402
@@ -177,16 +177,16 @@ def _host_samplers(n_hosts, weighted=True, trim=(0, 0, 0)):
         p.load_state_dict(r.state_dict())
         refs.append(r)
         ports.append(p)
-    return refs, ports, merged_count_atol([r.state.table.counts for r in refs])
+    return refs, ports, [(r.state.table.keys, r.state.table.counts) for r in refs]
 
 
-def assert_tables_agree(t, r, atol, label):
+def assert_tables_agree(t, r, host_tables, ls, label):
     assert np.array_equal(to_np(t.keys), np.asarray(r.keys)), f"{label}: keys"
     for name in ("step", "overflow"):
         assert np.array_equal(to_np(getattr(t, name)), np.asarray(getattr(r, name))), name
+    atol = merged_count_atol(host_tables, ls, np.asarray(r.keys))
     for j, (a, b) in enumerate(zip(to_np(t.counts), np.asarray(r.counts))):
-        np.testing.assert_allclose(a, b, rtol=RTOL, atol=atol[j, 0],
-                                   err_msg=f"{label}: counts, lane {j}")
+        assert_counts_close(a, b, atol[j], f"{label}: counts, lane {j}")
     for name in ("tau", "kb", "seed"):
         a, b = to_np(getattr(t, name)), np.asarray(getattr(r, name))
         fin = np.isfinite(b)
@@ -196,22 +196,22 @@ def assert_tables_agree(t, r, atol, label):
 
 @pytest.mark.parametrize("fold", ["left", "tree"])
 def test_merge_fixed_k_multi_matches_reference(fold):
-    refs, ports, atol = _host_samplers(3)
+    refs, ports, tables = _host_samplers(3)
     ls_r, ls_t = refs[0].state.l, ports[0].state.l
     got = TD.merge_fixed_k_multi_states([p.state.table for p in ports], ls_t,
                                         case.SALT, k=case.K, fold=fold)
     want = RD.merge_fixed_k_multi_states([r.state.table for r in refs], ls_r,
                                          case.SALT, k=case.K, fold=fold)
-    assert_tables_agree(got, want, atol, f"fold={fold}")
+    assert_tables_agree(got, want, tables, case.LS, f"fold={fold}")
     pair = TD.merge_fixed_k_multi(ports[0].state.table, ports[1].state.table, ls_t,
                                   case.SALT, k=case.K)
     pair_r = RD.merge_fixed_k_multi(refs[0].state.table, refs[1].state.table, ls_r,
                                     case.SALT, k=case.K)
-    assert_tables_agree(pair, pair_r, atol, "pair")
+    assert_tables_agree(pair, pair_r, tables[:2], case.LS, "pair")
 
 
 def test_merge_fixed_k_single_lane_matches_reference():
-    refs, ports, atol = _host_samplers(3)
+    refs, ports, tables = _host_samplers(3)
     j = 1  # lane l = 5
     lane = lambda table: type(table)(*(x[j] for x in table))  # noqa: E731
     got = TD.merge_fixed_k_states([lane(p.state.table) for p in ports], case.LS[j],
@@ -220,17 +220,20 @@ def test_merge_fixed_k_single_lane_matches_reference():
                                    jnp.float32(case.LS[j]), case.SALT, k=case.K)
     assert_tables_agree(TV.TableState(*(x[None] for x in got)),
                         TV.TableState(*(np.asarray(x)[None] for x in want)),
-                        atol[j:j + 1], "single lane")
+                        [(k[j:j + 1], c[j:j + 1]) for k, c in tables], case.LS[j:j + 1],
+                        "single lane")
 
 
 def test_absorb_many_matches_reference():
     """Each host's remainder is flushed in its own id namespace, the tables
     fold left, the summaries min-merge."""
     refs, ports, _ = _host_samplers(3, trim=(0, 100, 333))
-    atol = merged_count_atol([to_np(p.flushed_state().table.counts) for p in ports])
+    tables = [(to_np(t.keys), to_np(t.counts))
+              for t in (p.flushed_state().table for p in ports)]
     refs[0].absorb_many(refs[1:], k=case.K, merge_summaries=True)
     ports[0].absorb_many(ports[1:], k=case.K, merge_summaries=True)
-    assert_tables_agree(ports[0].state.table, refs[0].state.table, atol, "absorb_many")
+    assert_tables_agree(ports[0].state.table, refs[0].state.table, tables, case.LS,
+                        "absorb_many")
     rk, rs = refs[0].bottomk_summaries()
     pk, ps = ports[0].bottomk_summaries()
     assert np.array_equal(pk, rk)

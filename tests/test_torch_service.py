@@ -20,7 +20,8 @@ pytest.importorskip("jax")
 
 import _torch_ref  # noqa: E402,F401  (sets the reference's enable_x64 alias)
 import _two_pass_case as case  # noqa: E402
-from _torch_ref import RTOL, count_atol, merged_count_atol  # noqa: E402
+from _torch_ref import (RTOL, assert_counts_close, count_atol,  # noqa: E402
+                        merged_count_atol)
 
 from repro.core import freqfns as RF  # noqa: E402
 from repro.core import segments as RG  # noqa: E402
@@ -165,16 +166,17 @@ def _exact_queries(F, G):
 @pytest.mark.parametrize("mode", ["exact", "approx"])
 def test_merge_many_matches_reference(mode):
     shards, refs, ports = _hosts(3)
-    atol = merged_count_atol([r._sampler.flushed_state().table.counts for r in refs])
+    tables = [(t.keys, t.counts) for t in (r._sampler.flushed_state().table for r in refs)]
     refs[0].merge_many(refs[1:], mode=mode)
     ports[0].merge_many(ports[1:], mode=mode)
     ref, port = refs[0], ports[0]
     assert ref.n_observed == port.n_observed == sum(len(k) for k, _ in shards)
     rs, ps = ref.sketches(), port.sketches()
+    host_atol = count_atol(max(float(np.max(w)) for _, w in shards))
+    atol = merged_count_atol(tables, list(rs), [rs[l].keys for l in rs], host_atol)
     for j, l in enumerate(rs):
         assert np.array_equal(rs[l].keys, ps[l].keys), l
-        np.testing.assert_allclose(ps[l].counts, rs[l].counts, rtol=RTOL,
-                                   atol=atol[j, 0])
+        assert_counts_close(ps[l].counts, rs[l].counts, atol[j], f"counts, l={l}")
         assert ps[l].tau == pytest.approx(rs[l].tau, rel=RTOL)
     rk, rsd = ref._sampler.bottomk_summaries()
     pk, psd = port._sampler.bottomk_summaries()
