@@ -39,6 +39,21 @@ Phases, each of which fails the run if it fails:
              counts, every exact estimate lies within 5 stderr, and
              ``capscore_multi`` / ``capscore`` launched once per chunk step
              per rank.
+2c. flash_attention — the attention kernel against ``attention_ref`` on the
+             card (f32 math): (B,Hq,Hkv,S,D) = (2,4,4,256,64), (2,4,2,256,64),
+             (2,8,1,384,128), (1,2,2,128,16) and a ragged (1,4,2,200,32), each
+             causal and not, contiguous and strided, f32 (tolerance 2e-5)
+             and bf16 (2e-2); and the
+             serving prefill's shape (4,32,4,4096,128) bf16 causal, on the
+             strided [B,S,H,D] views the prefill hands it; timed beside the
+             plain version and ``scaled_dot_product_attention``.
+7. LM serving — yi-6b at full width (32 layers, d_model 4096, bf16, random
+             weights from a seeded generator on the card), attention through
+             the kernel: a batched prefill of 4 prompts of 4096 tokens (32
+             kernel launches), profiled once; 32 greedy ``decode_step``s; the
+             prefill held against the plain chunked attention path and the
+             last decode step against a plain prefill of all 4128 tokens;
+             then ``DecodeServer`` answers the reference demo's 6 requests.
 
 The results and the profile are also written as JSON to ``chiprun_out/``
 in the checkout (git-ignored).
@@ -70,6 +85,7 @@ PROFILE_STEPS = 64
 # of these kernels
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 SALT = 0x5EED
 EMPTY = 2**31 - 1
 
@@ -96,9 +112,10 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -315,6 +332,87 @@ def check_capscore(device, rng) -> dict:
             "replaces": "src/repro/kernels/capscore/capscore.py:166",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
+FLASH_CASES = ((2, 4, 4, 256, 64), (2, 4, 2, 256, 64), (2, 8, 1, 384, 128),
+               (1, 2, 2, 128, 16), (1, 4, 2, 200, 32))
+PREFILL_SHAPE = (4, 32, 4, 4096, 128)  # yi-6b's serving prefill: B, Hq, Hkv, S, D
+# the reference's own tolerances for its flash kernel against the naive
+# oracle (tests/test_kernels.py): the online softmax sums in another order,
+# and a bf16 output may round to the other side (one ulp is 2^-8 relative)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _flash_inputs(gen, shape, dtype, strided: bool):
+    """q, k, v ~ N(0, 1) as [B, H, S, D]; ``strided`` gives them as the
+    transposed views of [B, S, H, D] tensors that the prefill passes."""
+    import torch
+
+    B, Hq, Hkv, S, D = shape
+    out = []
+    for H in (Hq, Hkv, Hkv):
+        x = torch.randn((B, S, H, D), generator=gen, device=gen.device).to(dtype)
+        out.append(x.transpose(1, 2) if strided else x.transpose(1, 2).contiguous())
+    return out
+
+
+def check_flash_attention(device, seed: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_cases, err = 0, 0.0
+    for shape in FLASH_CASES:
+        for dtype in ("float32", "bfloat16"):
+            for causal in (True, False):
+                for strided in (False, True):
+                    q, k, v = _flash_inputs(gen, shape, getattr(torch, dtype), strided)
+                    got = ops.flash_attention_cuda(q, k, v, causal=causal)
+                    want = ops.attention_ref(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    d = float((got.float() - want.float()).abs().max())
+                    tol = FLASH_TOL[dtype]
+                    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+                        raise AssertionError(
+                            f"flash_attention differs from attention_ref: {shape} {dtype} "
+                            f"causal={causal} strided={strided}, max abs {d}")
+                    err = max(err, d)
+                    n_cases += 1
+    log(f"flash_attention: within 2e-5 (f32) / 2e-2 (bf16) of attention_ref on "
+        f"{n_cases} cases (contiguous and strided); max abs err {err:.3e}")
+
+    B, Hq, Hkv, S, D = PREFILL_SHAPE
+    q, k, v = _flash_inputs(gen, PREFILL_SHAPE, torch.bfloat16, True)
+    got = ops.flash_attention_cuda(q, k, v, causal=True)
+    want = ops.attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err_prefill = float((got.float() - want.float()).abs().max())
+    tol = FLASH_TOL["bfloat16"]
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"flash_attention at the prefill shape: max abs {err_prefill}")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True), iters=10, warmup=2)
+    plain = cuda_ms(lambda: ops.attention_ref(q, k, v, causal=True), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True),
+                      iters=20, warmup=3)
+    # bytes: q, k, v read once, o written once (bf16); operations: QK^T and
+    # P.V over the S(S+1)/2 unmasked (q, kv) pairs of each head, 2 FLOP per
+    # multiply-add, at the bf16 tensor-core rate
+    n_bytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+    n_ops = 4 * B * Hq * D * S * (S + 1) / 2
+    b, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS_PER_S)
+    log(f"flash_attention {PREFILL_SHAPE} bf16 causal: max abs err {err_prefill:.3e}; "
+        f"kernel {ms:.4f} ms ({n_ops / ms * 1e-9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention {library:.4f} ms, bound {b:.6f} ms ({by})")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/flash_attention.py:72",
+            "launches": None, "max_abs_err": max(err, err_prefill), "ms": ms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": library}
 
 
 # ---------------------------------------------------------------------------
@@ -761,6 +859,210 @@ def run_distributed(seed: int, n: int, batch: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: dense LM serving at full width
+# ---------------------------------------------------------------------------
+
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 4096, 32  # 4 prompts of Yi-6B's 4096-token context
+# Both sides of each check run the same bf16 model and differ only in how
+# attention orders its f32 sums (and, for decode, in the matmul shapes and the
+# softmax weights rounded to bf16 as the reference does); each such difference
+# can flip a bf16 rounding (2^-8 relative) that 32 residual layers of a
+# random-weight model carry into every logit, a few per cent of the vector.
+# An attention fault (a wrong mask, head or tile) moves it by order 100%.
+LM_REL_L2_TOL = 5e-2
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def _all_counters():
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    return {**_counters(), "flash_attention": fops.flash_attention_cuda}
+
+
+def _device_profile(fn, calls: int) -> dict:
+    """``torch.profiler`` over ``calls`` calls of ``fn``: device time and
+    kernel launches per call, the device's busy share of the wall time, and
+    the attention kernel's share and device time per launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, launches, flash_us, flash_n = 0.0, 0, 0.0, 0
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        busy_us += dev_us
+        launches += e.count
+        if "flash_kernel" in e.key:
+            flash_us += dev_us
+            flash_n += e.count
+    return {"calls": calls, "wall_ms_per_call": wall * 1e3 / calls,
+            "device_busy_ms_per_call": busy_us * 1e-3 / calls,
+            "device_busy_share": busy_us * 1e-6 / wall,
+            "kernel_launches_per_call": launches / calls,
+            "attention_device_ms_per_call": flash_us * 1e-3 / calls,
+            "attention_share_of_device": flash_us / busy_us if busy_us else None,
+            "attention_device_us_per_launch": flash_us / flash_n if flash_n else None}
+
+
+def run_lm_serving(seed: int, device) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import yi_6b
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = dataclasses.replace(yi_6b.full_config(), attention_backend=None)
+    plain = dataclasses.replace(cfg, attention_backend="xla_chunked")
+    B, S, NEW = LM_BATCH, LM_PROMPT, LM_NEW
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": str(cfg.dtype), "batch": B, "prompt": S, "new_tokens": NEW}
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=device).manual_seed(seed), cfg)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    out["n_params"] = sum(t.numel() for t in _leaves(params))
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, S))).to(device)
+    T.prefill(params, cfg, tokens[:, :128])  # warm-up: libraries and kernels loaded
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counters = _all_counters()
+    for c in counters.values():
+        c.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    logits, (ck, cv) = T.prefill(params, cfg, tokens)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    out["launches"] = {name: c.launches for name, c in counters.items()}
+    if out["launches"]["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched {out['launches']['flash_attention']} "
+                             f"times in a prefill of {cfg.n_layers} layers")
+    out.update(prefill_ms=t_prefill * 1e3, prefill_tokens_per_s=B * S / t_prefill,
+               max_memory_allocated_prefill=(torch.cuda.max_memory_allocated()
+                                             if device.type == "cuda" else None))
+    if device.type == "cuda":
+        out["prefill_profile"] = _device_profile(lambda: T.prefill(params, cfg, tokens), 1)
+
+    sync()
+    t0 = time.perf_counter()
+    p_logits, (p_ck, p_cv) = T.prefill(params, plain, tokens)
+    sync()
+    out["plain_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    for name, got, want in (("logits", logits, p_logits), ("k cache", ck, p_ck),
+                            ("v cache", cv, p_cv)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"prefill {name}: non-finite values")
+        rel = _rel_l2(got, want)
+        out[f"prefill_{name.replace(' ', '_')}_rel_l2"] = rel
+        if not rel <= LM_REL_L2_TOL:
+            raise AssertionError(f"prefill {name} through the kernel vs the plain path: "
+                                 f"relative L2 {rel} > {LM_REL_L2_TOL}")
+    out["prefill_logits_max_abs_diff"] = float((logits - p_logits).abs().max())
+    del p_logits, p_ck, p_cv
+
+    cache = T.init_cache(cfg, B, S + NEW, device=device)
+    cache[0][:, :, :S] = ck
+    cache[1][:, :, :S] = cv
+    del ck, cv
+    tok = logits.argmax(dim=-1)
+    fed = []
+    sync()
+    t0 = time.perf_counter()
+    for t in range(NEW):
+        fed.append(tok)
+        pos = torch.full((B,), S + t, dtype=torch.long, device=device)
+        step_logits, cache = T.decode_step(params, cfg, tok, cache, pos)
+        tok = step_logits.argmax(dim=-1)
+    sync()
+    t_dec = time.perf_counter() - t0
+    out.update(decode_ms_per_step=t_dec / NEW * 1e3, decode_tokens_per_s=B * NEW / t_dec)
+
+    # the same tokens through one plain prefill; 4128 is no multiple of 512,
+    # so the chunked path takes 8 chunks of 516 rows
+    full = torch.cat([tokens, torch.stack(fed, dim=1)], dim=1)
+    f_logits, _ = T.prefill(params, dataclasses.replace(plain, attention_chunk=(S + NEW) // 8),
+                            full)
+    if not torch.isfinite(step_logits).all():
+        raise AssertionError("decode logits: non-finite values")
+    rel = _rel_l2(step_logits, f_logits)
+    out["decode_vs_full_prefill_rel_l2"] = rel
+    out["decode_vs_full_prefill_max_abs_diff"] = float((step_logits - f_logits).abs().max())
+    out["decode_vs_full_prefill_argmax_equal"] = int(
+        (step_logits.argmax(-1) == f_logits.argmax(-1)).sum())
+    if not rel <= LM_REL_L2_TOL:
+        raise AssertionError(f"last decode step vs a plain prefill of all {S + NEW} tokens: "
+                             f"relative L2 {rel} > {LM_REL_L2_TOL}")
+    del f_logits, full
+    if device.type == "cuda":  # the last step again: it rewrites the same k/v
+        out["decode_profile"] = _device_profile(
+            lambda: T.decode_step(params, cfg, fed[-1], cache, pos), 4)
+    del cache
+
+    server = serve.DecodeServer(cfg, params, slots=4, max_len=24 + 16, device=device)
+    counters["flash_attention"].launches = 0
+    sync()
+    res = serve.serve(server, serve.demo_prompts(6, cfg.vocab, seed), log=lambda m: None)
+    sync()
+    if sorted(server.outputs) != list(range(6)) or not all(server.outputs.values()):
+        raise AssertionError(f"DecodeServer answered {sorted(server.outputs)} of 6 requests")
+    out["server"] = {**res, "tokens_per_s": res["tokens"] / res["seconds"],
+                     "flash_attention_launches": counters["flash_attention"].launches}
+    del server, params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    prof = out.get("prefill_profile", {})
+    dprof = out.get("decode_profile", {})
+    log(f"phase 7 ({cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, "
+        f"{out['n_params']} parameters, init {out['init_s']:.1f} s): prefill {B}x{S} in "
+        f"{out['prefill_ms']:.1f} ms ({out['prefill_tokens_per_s']:.1f} tokens/s, plain path "
+        f"{out['plain_prefill_ms']:.1f} ms), max_memory_allocated "
+        f"{out['max_memory_allocated_prefill']} B, launches {out['launches']}; attention "
+        f"{prof.get('attention_device_ms_per_call')} ms of "
+        f"{prof.get('device_busy_ms_per_call')} ms device time "
+        f"({prof.get('attention_device_us_per_launch')} us per launch, device busy "
+        f"{prof.get('device_busy_share')}); decode {out['decode_ms_per_step']:.2f} ms per "
+        f"step ({out['decode_tokens_per_s']:.1f} tokens/s; profiled: "
+        f"{dprof.get('kernel_launches_per_call')} kernel launches and "
+        f"{dprof.get('device_busy_ms_per_call')} ms device time per step, device busy "
+        f"{dprof.get('device_busy_share')}); relative L2 vs the plain path: "
+        f"prefill logits {out['prefill_logits_rel_l2']:.3e}, k {out['prefill_k_cache_rel_l2']:.3e}, "
+        f"v {out['prefill_v_cache_rel_l2']:.3e}, last decode step vs full prefill "
+        f"{rel:.3e} (argmax equal {out['decode_vs_full_prefill_argmax_equal']}/{B}); "
+        f"DecodeServer: 6 requests, {res['tokens']} tokens in {res['seconds']:.2f} s "
+        f"({out['server']['tokens_per_s']:.1f} tokens/s, {res['steps']} steps; token-by-token "
+        f"admit and decode only, so flash_attention launched "
+        f"{out['server']['flash_attention_launches']} times)")
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -793,21 +1095,26 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
     kernels = [check_chunksort(device, rng), check_capscore_agg(device, rng),
-               check_capscore_multi(device, rng), check_capscore(device, rng)]
+               check_capscore_multi(device, rng), check_capscore(device, rng),
+               check_flash_attention(device, args.seed)]
 
     main_path = run_main_path(args.seed, 1 << 24, 1 << 20)
     run_state_round_trip(args.seed, 1 << 22)
 
     profile = run_profile(args.seed, PROFILE_STEPS)
     distributed = run_distributed(args.seed, 1 << 24, 1 << 20)
-    launches = {**main_path["launches"], **distributed["launches"]}
+    lm = run_lm_serving(args.seed, device)
+    launches = {**main_path["launches"], **distributed["launches"],
+                "flash_attention": lm["launches"]["flash_attention"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "seed": args.seed, "kernels": kernels, "main_path": main_path,
-         "distributed": distributed, "seconds": time.perf_counter() - t_start},
+         "distributed": distributed, "lm_serving": lm, "seconds": time.perf_counter() - t_start},
         indent=1))
     (OUT_DIR / "profile_chunk_step.json").write_text(json.dumps(profile, indent=1))
     print(smi)

@@ -1,15 +1,21 @@
-"""Carry sampler / service state between the reference package and the port.
+"""Carry state and weights between the reference package and the port.
 
 The reference ``MultiSampler.state_dict()`` (and ``StreamStatsService``'s,
 which adds ``exact_ok``) is a flat dict of numpy arrays.  Randomness comes
 only from ``(salt, key, eid)`` hashing, so a state carried across continues
-the stream exactly where the other package left it: this takes the place of
-carrying weights across.
+the stream exactly where the other package left it.
+
+A transformer's parameters are the reference ``init_params`` tree (nested
+dicts, layer leaves stacked on [L, ...]) with numpy leaves; bf16 leaves are
+numpy's ``bfloat16`` extension type on the reference side and travel as
+their 16-bit patterns.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .models.transformer import param_shapes, tree_map
 
 # leaf name -> (numpy dtype, torch dtype), in the reference's order
 _LEAVES = {
@@ -60,3 +66,45 @@ def state_from_reference(d: dict, *, device) -> dict[str, torch.Tensor]:
 def state_to_reference(d: dict) -> dict[str, np.ndarray]:
     """This package's state dict as the reference's: numpy arrays."""
     return {name: _host(v) for name, v in d.items()}
+
+
+def _tensor_from_np(a: np.ndarray, device) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bit pattern
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _np_from_tensor(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # the reference side's bf16 numpy type
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _check_tree(tree, shapes, where="params"):
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or set(tree) != set(shapes):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise KeyError(f"{where}: expected keys {sorted(shapes)}, got {got}")
+        for k in shapes:
+            _check_tree(tree[k], shapes[k], f"{where}.{k}")
+    elif tuple(tree.shape) != tuple(shapes):
+        raise ValueError(f"{where}: shape {tuple(tree.shape)}, expected {tuple(shapes)}")
+
+
+def transformer_params_from_reference(np_tree: dict, cfg, device) -> dict:
+    """The reference transformer's ``init_params`` tree (numpy leaves) as
+    the port's parameters: tensors on ``device`` in ``cfg.dtype``, the same
+    tree and shapes."""
+    _check_tree(np_tree, param_shapes(cfg))
+    return tree_map(lambda a: _tensor_from_np(np.asarray(a), device).to(cfg.dtype),
+                    np_tree)
+
+
+def transformer_params_to_reference(params: dict) -> dict:
+    """The port's transformer parameters as the reference's tree of numpy
+    arrays (bf16 as numpy's ``bfloat16``)."""
+    return tree_map(_np_from_tensor, params)

@@ -28,6 +28,24 @@ samplers draw, by at most 2 ulp), so every f32 value derived from
 * discrete outcomes (entered flags, sampled key sets): equal, unless a
   mismatch is explained by a deciding float pair within 4 ulp, which the
   assertion message prints.
+
+Tolerances of the LM serving path (attention, layers, transformer, server):
+
+* attention (``ATTN_TOL``): f32 2e-5 and bf16 2e-2, atol = rtol, the
+  reference's own tolerances for its flash kernel against the naive oracle
+  (``tests/test_kernels.py``): the blockwise online softmax sums in another
+  order than the naive one, and a bf16 output may round to the other side
+  (one bf16 ulp is 2^-8 relative);
+* layers and the smoke transformers in f32 (``LM_F32_TOL``): atol = rtol =
+  1e-4, because XLA:CPU and torch sum the matmuls in different orders and
+  2 layers carry those differences into logits and caches;
+* layer ops on bf16 inputs (``BF16_ULP_TOL``): rtol 2^-7, two bf16 ulps,
+  since both packages compute in f32 and round once to bf16, where an f32
+  difference of an ulp can land on either side of a bf16 rounding point.
+
+JAX runs with x64 off around every reference call of the LM path
+(``x64_off``): another test in the same worker may leave it on, and
+``rope_angles`` would then keep its f64 inverse frequencies.
 """
 from __future__ import annotations
 
@@ -41,6 +59,9 @@ if not hasattr(jax.experimental, "enable_x64"):
 
 RTOL = 1e-5
 MAX_ULP = 4
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LM_F32_TOL = 1e-4
+BF16_ULP_TOL = 2.0**-7
 EMPTY = 2**31 - 1  # the samplers' empty-slot key
 
 
@@ -51,6 +72,11 @@ def require_cuda():
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+
+
+def x64_off():
+    """Context manager: JAX with x64 disabled."""
+    return jax.enable_x64(False)
 
 
 def to_np(x) -> np.ndarray:

@@ -14,6 +14,10 @@ stable argsort).  ``capscore_agg``: ``entered``, ``kb_min`` and
 1e-5, because the kernel sums in another order than the plain version.
 ``capscore_multi`` and ``capscore``: every output bit-identical (the same
 IEEE operations in the same order and the same ``log1pf``).
+``flash_attention``: within 2e-5 (f32) and 2e-2 (bf16) of ``attention_ref``
+and of the kernel's plain blockwise version, the reference's own tolerances
+for its flash kernel (the online softmax sums in another order; a bf16
+output may round to the other side).
 """
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.segments import chunk_order  # noqa: E402
 from repro_torch.kernels.capscore import ops as cops  # noqa: E402
 from repro_torch.kernels.chunksort import ops as sops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +149,50 @@ def test_capscore_kernel_matches_plain(N, l, tau):
     want = cops.capscore_ref(*elems, l, tau, SALT)
     for g, w, name in zip(got, want, ("score", "delta", "entry")):
         assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 4, 4, 256, 64), (2, 4, 2, 256, 64),
+                                          (2, 8, 1, 384, 128), (1, 2, 2, 128, 16),
+                                          (1, 4, 2, 128, 32), (1, 4, 2, 200, 32),
+                                          (1, 2, 1, 1, 64), (1, 2, 2, 65, 128)])
+def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, S, D, causal, dtype, strided):
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(B * 1000 + S + D)
+
+    def make(H):
+        x = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        return x.transpose(1, 2) if strided else x.transpose(1, 2).contiguous()
+
+    q, k, v = make(Hq), make(Hkv), make(Hkv)
+    before = fops.flash_attention_cuda.launches
+    got = fops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fops.flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, Hq, S, D)
+    tol = FLASH_TOL[dtype]
+    for want in (fops.attention_ref(q, k, v, causal=causal),
+                 fops.flash_attention_ref(q, k, v, causal=causal)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_cuda_refuses_what_the_kernel_does_not_take():
+    _require_cuda()
+    q = torch.zeros((1, 4, 128, 64), device="cuda")
+    k = torch.zeros((1, 3, 128, 64), device="cuda")
+    with pytest.raises(ValueError, match="multiple"):
+        fops.flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros((1, 2, 128, 48), device="cuda")
+        fops.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        x = torch.zeros((1, 2, 128, 64), device="cuda", dtype=torch.float16)
+        fops.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="last dim"):
+        x = torch.zeros((1, 2, 64, 128), device="cuda").transpose(2, 3)
+        fops.flash_attention_cuda(x, x, x)
