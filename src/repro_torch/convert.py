@@ -15,8 +15,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.transformer import param_shapes, tree_map
-
 # leaf name -> (numpy dtype, torch dtype), in the reference's order
 _LEAVES = {
     "keys": (np.int32, torch.int32),
@@ -99,6 +97,9 @@ def transformer_params_from_reference(np_tree: dict, cfg, device) -> dict:
     """The reference transformer's ``init_params`` tree (numpy leaves) as
     the port's parameters: tensors on ``device`` in ``cfg.dtype``, the same
     tree and shapes."""
+    # imported here: the model imports core.incremental, which imports this module
+    from .models.transformer import param_shapes, tree_map
+
     _check_tree(np_tree, param_shapes(cfg))
     return tree_map(lambda a: _tensor_from_np(np.asarray(a), device).to(cfg.dtype),
                     np_tree)
@@ -107,4 +108,6 @@ def transformer_params_from_reference(np_tree: dict, cfg, device) -> dict:
 def transformer_params_to_reference(params: dict) -> dict:
     """The port's transformer parameters as the reference's tree of numpy
     arrays (bf16 as numpy's ``bfloat16``)."""
+    from .models.transformer import tree_map
+
     return tree_map(_np_from_tensor, params)

@@ -16,6 +16,7 @@ from typing import Any
 
 import torch
 
+from ..core.incremental import resolve_device
 from ..layers.attention import (
     AttentionConfig,
     attention_decode,
@@ -179,7 +180,10 @@ def prefill(params: dict, cfg: TransformerConfig, tokens):
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, *,
                device=None):
+    """Zeroed (k, v) caches, each [L, batch, max_len, n_kv, d], on ``device``
+    (None: the CUDA card)."""
     dtype = dtype or cfg.dtype
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))

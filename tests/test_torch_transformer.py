@@ -79,7 +79,7 @@ def test_prefill_then_decode_matches_reference(arch, backends):
     _close(ck, r_ck, what="prefill k cache")
     _close(cv, r_cv, what="prefill v cache")
 
-    cache = T.init_cache(cfg, B, S + N_DECODE)
+    cache = T.init_cache(cfg, B, S + N_DECODE, device="cpu")
     cache[0][:, :, :S] = ck
     cache[1][:, :, :S] = cv
     for t in range(N_DECODE):
@@ -191,6 +191,14 @@ def test_swiglu_matches_reference():
     got = common.swiglu(*(torch.from_numpy(a) for a in (x, w1, w3, w2)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LM_F32_TOL,
                                rtol=LM_F32_TOL)
+
+
+def test_init_cache_defaults_to_the_card():
+    cfg = registry.get_config("yi-6b", smoke=True)
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device exists")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_cache(cfg, 1, 8)
 
 
 def test_moe_configs_are_refused():
