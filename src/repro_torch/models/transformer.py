@@ -46,8 +46,10 @@ class TransformerConfig:
     attention_backend: str | None = "xla_chunked"
     scan_layers: bool = True
     tie_embeddings: bool = False
-    # accepted so the reference's configs carry over; on one card there is
-    # nothing to shard or rematerialize in serving
+    # remat, scan_layers, tie_embeddings (unused by the reference too),
+    # sequence_parallel and remat_policy are accepted so the reference's
+    # configs carry over; serving on one card rematerializes, scans and
+    # shards nothing
     sequence_parallel: bool = False
     remat_policy: str = "full"
 
