@@ -12,7 +12,6 @@ def full_config() -> TransformerConfig:
     return TransformerConfig(
         name=ARCH_ID, n_layers=32, d_model=4096, n_heads=32, n_kv=32,
         d_ff=13440, vocab=92416, dtype=torch.bfloat16,
-        sequence_parallel=True,
     )
 
 

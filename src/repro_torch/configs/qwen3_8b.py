@@ -12,7 +12,6 @@ def full_config() -> TransformerConfig:
     return TransformerConfig(
         name=ARCH_ID, n_layers=36, d_model=4096, n_heads=32, n_kv=8,
         d_ff=12288, vocab=151936, qk_norm=True, d_head=128, dtype=torch.bfloat16,
-        sequence_parallel=True,
     )
 
 

@@ -11,7 +11,6 @@ def full_config() -> TransformerConfig:
     return TransformerConfig(
         name=ARCH_ID, n_layers=32, d_model=4096, n_heads=32, n_kv=4,
         d_ff=11008, vocab=64000, dtype=torch.bfloat16,
-        sequence_parallel=True,
     )
 
 

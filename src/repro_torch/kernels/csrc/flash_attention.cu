@@ -230,13 +230,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                    int group, int S, const long long* st, float scale, int causal,
                    cudaStream_t stream) {
   constexpr size_t smem = (2 * D * TS + BQ * TS) * sizeof(float);
-  static bool configured = false;  // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // the attribute belongs to the current device, so it is set on every launch
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
   flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

@@ -4,8 +4,8 @@
 Backends, with the reference's names so configs carry over:
 
 * ``None`` and ``"pallas"`` — ``flash_attention``: the hand-written CUDA
-  kernel (``kernels/csrc/flash_attention.cu``) for a CUDA tensor, its plain
-  blockwise version for a CPU tensor;
+  kernel (``kernels/csrc/flash_attention.cu``) for a CUDA tensor,
+  ``attention_ref`` for a CPU tensor;
 * ``"xla_chunked"`` — ``xla_chunked_attention``, one q chunk at a time
   (scores S x chunk), plain PyTorch;
 * ``"naive"`` — ``attention_ref``, the full S x S scores.
@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import attention_ref, flash_attention_ref
+from .ref import attention_ref
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -59,10 +59,10 @@ def xla_chunked_attention(q, k, v, *, causal: bool = True, chunk: int = 512):
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """Blockwise attention, routed by device: the plain version for a CPU
-    tensor, the CUDA kernel for a CUDA tensor (or it raises)."""
+    """Attention routed by device: the plain version (``attention_ref``)
+    for a CPU tensor, the CUDA kernel for a CUDA tensor (or it raises)."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+        return attention_ref(q, k, v, causal=causal)
     return flash_attention_cuda(q, k, v, causal=causal)
 
 

@@ -1,19 +1,13 @@
-"""Plain PyTorch versions of the attention kernel (mirror
-``repro/kernels/flash_attention/ref.py`` and the Pallas kernel's body).
+"""The plain PyTorch version of the attention kernel (mirrors
+``repro/kernels/flash_attention/ref.py``).
 
-``attention_ref`` is the naive oracle: it materialises the S x S scores.
-``flash_attention_ref`` is the blockwise online softmax of ``_flash_kernel``
-written with tensor ops, in the CUDA kernel's 64-row tiles; it is what
-``flash_attention`` runs for a CPU tensor.  Both keep q, k, v layouts
-[B, H, S, D] and compute in f32.
+``attention_ref`` is the naive oracle: it materialises the S x S scores in
+f32, takes any S, and is what ``flash_attention`` runs for a CPU tensor.
+q, k, v are [B, H, S, D].
 """
 from __future__ import annotations
 
 import torch
-
-BQ = 64  # the CUDA kernel's q rows per block
-BK = 64  # and kv rows per tile
-NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True):
@@ -32,41 +26,3 @@ def attention_ref(q, k, v, *, causal: bool = True):
     p = e / e.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vv.float())
     return out.to(q.dtype)
-
-
-def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """The kernel's algorithm: q scaled by 1/sqrt(D) in f32 before QK^T,
-    masked scores NEG_INF, running (m, l, acc) in f32 over kv tiles up to
-    the causal bound, output acc / l in q.dtype.  A ragged S is masked
-    (kv rows past S never enter a tile)."""
-    B, Hq, S, D = q.shape
-    Hkv = k.shape[1]
-    g = Hq // Hkv
-    scale = 1.0 / (D**0.5)
-    qf = q.float().reshape(B, Hkv, g, S, D) * scale
-    kf = k.float()[:, :, None]
-    vf = v.float()[:, :, None]
-    out = torch.empty((B, Hkv, g, S, D), dtype=torch.float32, device=q.device)
-    n_tiles = -(-S // BK)
-    for q0 in range(0, S, BQ):
-        qt = qf[..., q0:q0 + BQ, :]
-        rows = qt.shape[-2]
-        m = torch.full((B, Hkv, g, rows), NEG_INF, device=q.device)
-        l = torch.zeros((B, Hkv, g, rows), device=q.device)
-        acc = torch.zeros((B, Hkv, g, rows, D), device=q.device)
-        upper = min(n_tiles, -(-(q0 + BQ) // BK)) if causal else n_tiles
-        for j in range(upper):
-            k0 = j * BK
-            s = qt @ kf[..., k0:k0 + BK, :].transpose(-1, -2)
-            if causal:
-                qpos = torch.arange(q0, q0 + rows, device=q.device)[:, None]
-                kpos = torch.arange(k0, k0 + s.shape[-1], device=q.device)[None, :]
-                s = torch.where(qpos >= kpos, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + p @ vf[..., k0:k0 + BK, :]
-            m = m_new
-        out[..., q0:q0 + rows, :] = acc / l[..., None]
-    return out.reshape(B, Hq, S, D).to(q.dtype)

@@ -25,7 +25,6 @@ class AttentionConfig:
     rope_theta: float = 10000.0
     attention_chunk: int = 512
     backend: str | None = "xla_chunked"  # None / "pallas": the attention kernel
-    shard_kv: bool = False  # accepted so configs carry over; one card shards nothing
 
 
 def attention_shapes(cfg: AttentionConfig) -> dict[str, tuple[int, ...]]:

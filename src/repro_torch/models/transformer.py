@@ -41,17 +41,8 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     moe: Any = None
     dtype: Any = torch.bfloat16
-    remat: bool = True
     attention_chunk: int = 512
     attention_backend: str | None = "xla_chunked"
-    scan_layers: bool = True
-    tie_embeddings: bool = False
-    # remat, scan_layers, tie_embeddings (unused by the reference too),
-    # sequence_parallel and remat_policy are accepted so the reference's
-    # configs carry over; serving on one card rematerializes, scans and
-    # shards nothing
-    sequence_parallel: bool = False
-    remat_policy: str = "full"
 
     @property
     def head_dim(self) -> int:
@@ -62,7 +53,6 @@ class TransformerConfig:
             d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
             d_head=self.head_dim, qk_norm=self.qk_norm, rope_theta=self.rope_theta,
             attention_chunk=self.attention_chunk, backend=self.attention_backend,
-            shard_kv=(self.n_kv % 16 == 0),
         )
 
     @property

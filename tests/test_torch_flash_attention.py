@@ -2,13 +2,15 @@
 
 Each CPU route of ``repro_torch.kernels.flash_attention.ops.attention`` is
 held against its reference counterpart on the same numpy inputs:
-``None`` / ``"pallas"`` (the kernel's plain blockwise version) against the
-Pallas ``flash_attention`` in interpret mode, ``"xla_chunked"`` against
+``None`` / ``"pallas"`` (the kernel's plain version, ``attention_ref``)
+against the Pallas ``flash_attention`` in interpret mode, ``"xla_chunked"`` against
 ``xla_chunked_attention`` and ``"naive"`` against ``attention_ref``.
 Tolerances: ``ATTN_TOL`` in ``tests/_torch_ref.py``.  The CUDA kernel
 itself is tested on the card (``tests/test_torch_kernels_cuda.py``).
 """
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,17 +66,16 @@ def test_attention_route_matches_reference(case, causal, dtype, route):
 @pytest.mark.parametrize("S", [1, 65, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_flash_masks_a_ragged_tail(S, causal):
-    """The kernel's plain version takes an S that is not a tile multiple
-    (the kernel masks its tail the same way); held against the naive
-    oracle of the same package."""
+    """``flash_attention``'s CPU route takes an S that is not a tile
+    multiple, as the kernel does (it masks its tail); held against the
+    reference's naive oracle, which takes any S."""
     rng = np.random.default_rng(S)
-    q = torch.from_numpy(rng.normal(size=(1, 4, S, 32)).astype(np.float32))
-    k = torch.from_numpy(rng.normal(size=(1, 2, S, 32)).astype(np.float32))
-    v = torch.from_numpy(rng.normal(size=(1, 2, S, 32)).astype(np.float32))
-    got = ops.flash_attention(q, k, v, causal=causal)
-    want = ops.attention_ref(q, k, v, causal=causal)
+    arrays = [rng.normal(size=(1, H, S, 32)).astype(np.float32) for H in (4, 2, 2)]
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in arrays), causal=causal)
+    with x64_off():
+        want = np.asarray(ref_naive(*(jnp.asarray(a) for a in arrays), causal=causal))
     tol = ATTN_TOL["float32"]
-    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
 
 
 def test_flash_attention_cuda_raises_on_cpu_tensors():
@@ -83,6 +84,20 @@ def test_flash_attention_cuda_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention_cuda(q, q, q)
     assert ops.flash_attention_cuda.launches == before
+
+
+def test_fault_check_mutates_the_kernel_source_once():
+    """``flash_fault_check.py`` plants each fault by replacing a piece of the
+    kernel's source; each piece must be there exactly once."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("flash_fault_check",
+                                                  root / "flash_fault_check.py")
+    ffc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ffc)
+    source = (root / "src/repro_torch/kernels/csrc/flash_attention.cu").read_text()
+    assert set(ffc.MUTANTS) == {"drop_tile", "shift_mask", "zero_out"}
+    for old, new in ffc.MUTANTS.values():
+        assert source.count(old) == 1 and new != old
 
 
 def test_unknown_backend_raises():

@@ -50,7 +50,8 @@ def _imports(path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                               ROOT / "flash_fault_check.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_neither_jax_nor_repro(path):
     for name in _imports(path):

@@ -176,9 +176,8 @@ def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, S, D, causal, dtype, s
     assert fops.flash_attention_cuda.launches == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (B, Hq, S, D)
     tol = FLASH_TOL[dtype]
-    for want in (fops.attention_ref(q, k, v, causal=causal),
-                 fops.flash_attention_ref(q, k, v, causal=causal)):
-        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    want = fops.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 def test_flash_attention_cuda_refuses_what_the_kernel_does_not_take():
