@@ -58,6 +58,27 @@ Phases, each of which fails the run if it fails:
              last, the weights upcast to f32, the prefill through the kernel
              against the plain path again, where f32 sum orders are the only
              difference and a subtle attention fault shows.
+2d. segment_sum — the segmented-sum kernel against ``segment_sum_ref`` on the
+             card at rtol 1e-5 / atol 1e-5 max|want| (integer-valued rows
+             exactly), each case launched twice (bit-identical): the
+             reference test space (N 1..2000, D 8/64/256, S 4/128/1024,
+             ids sorted and not), the tile([7,3,7,0]) case, empty segments,
+             out-of-range ids, all rows dropped, bf16/f16 rows,
+             ``embedding_bag`` sum/mean/weighted with -1 padding, a Zipf
+             scatter (2^24 rows of 64 into 2^20 segments), and the two-tower
+             pooling shapes (25,600 and 13,107,200 rows of 256 into 512 and
+             262,144 bags), timed beside the plain version, ``index_add_``
+             and, at the op level, ``F.embedding_bag(mode="mean")``.
+8. recsys serving — two-tower-retrieval at full size (10M items and 50M
+             users x 256, f32: 61.44 GB of tables, random weights from a
+             seeded generator on the card) at serve_p99 (B=512), serve_bulk
+             (B=262,144) and retrieval_cand (one user, 2^20 candidates,
+             top-100), the history pooling through the kernel (two launches
+             per call), each held against the reference's masked_mean
+             formula; a ``StreamStatsService`` sketches the serve_bulk item
+             stream, ``plan_hot_cold(4096)`` splits the table and
+             ``hot_cold_lookup`` must equal ``embed_lookup``; then din, bst
+             and mind at full size at serve_p99.
 
 The results and the profile are also written as JSON to ``chiprun_out/``
 in the checkout (git-ignored).
@@ -124,17 +145,52 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_profile(fn, calls: int, tag: str) -> dict:
+    """``torch.profiler`` over ``calls`` calls of ``fn``: device time and
+    kernel launches per call, the device's busy share of the wall time, the
+    device time of the kernels whose name holds ``tag`` (per call, as a
+    share of the device time, and per launch), and the kernels that took the
+    most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, launches, tag_us, tag_n, rows = 0.0, 0, 0.0, 0, []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        busy_us += dev_us
+        launches += e.count
+        rows.append({"name": e.key[:120], "launches_per_call": e.count / calls,
+                     "device_ms_per_call": dev_us * 1e-3 / calls})
+        if tag in e.key:
+            tag_us += dev_us
+            tag_n += e.count
+    rows.sort(key=lambda r: -r["device_ms_per_call"])
+    return {"calls": calls, "wall_ms_per_call": wall * 1e3 / calls,
+            "device_busy_ms_per_call": busy_us * 1e-3 / calls,
+            "device_busy_share": busy_us * 1e-6 / wall,
+            "kernel_launches_per_call": launches / calls, "kernel": tag,
+            "kernel_device_ms_per_call": tag_us * 1e-3 / calls,
+            "kernel_share_of_device": tag_us / busy_us if busy_us else None,
+            "kernel_device_us_per_launch": tag_us / tag_n if tag_n else None,
+            "top": rows[:8]}
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def zipf_keys(rng, n: int, alpha: float, n_keys: int):
-    """Zipf(alpha) keys truncated to [0, n_keys): the paper's §7 generator
-    (``repro/data/streams.py``)."""
-    return (rng.zipf(alpha, size=n) % n_keys).astype("int64")
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +201,7 @@ def zipf_keys(rng, n: int, alpha: float, n_keys: int):
 def check_chunksort(device, rng) -> dict:
     import numpy as np
     import torch
+    from repro_torch.data.streams import zipf_keys
     from repro_torch.kernels.chunksort import ops
 
     cases = []
@@ -190,6 +247,7 @@ def _agg_inputs(device, rng, C: int, L: int):
     import numpy as np
     import torch
     from repro_torch.core.segments import chunk_order
+    from repro_torch.data.streams import zipf_keys
 
     keys = zipf_keys(rng, C, 1.2, 1 << 22).astype(np.int32)
     eids = rng.integers(0, 2**31 - 1, C).astype(np.int32)
@@ -261,6 +319,7 @@ def _score_inputs(device, rng, N: int, L: int):
     lanes mixing tau = inf, tau*l > 1 and tau*l < 1."""
     import numpy as np
     import torch
+    from repro_torch.data.streams import zipf_keys
 
     keys = zipf_keys(rng, N, 1.2, 1 << 22).astype(np.int32)
     keys[rng.random(N) < 0.05] = EMPTY
@@ -299,17 +358,19 @@ def check_capscore_multi(device, rng) -> dict:
     N, L = 2048, 4
     ms = cuda_ms(lambda: ops.capscore_multi_cuda(*elems, ls, taus, SALT))
     plain = cuda_ms(lambda: ops.capscore_multi_ref(*elems, ls, taus, SALT))
+    dev_us = _device_profile(lambda: ops.capscore_multi_cuda(*elems, ls, taus, SALT), 20,
+                             "capscore_multi_kernel")["kernel_device_us_per_launch"]
     # bytes: keys/eids/weights once (12 B/element), ls/taus, and four [L, N]
     # outputs of 4 B; operations: ~40 integer ops per element hash (two),
     # ~30 for log1p and the divisions, ~10 per lane
     b, by = bound_ms(12 * N + 8 * L + 16 * L * N, N * (110 + 10 * L))
-    log(f"capscore_multi N={N} L={L}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b:.6f} ms ({by})")
+    log(f"capscore_multi N={N} L={L}: kernel {ms:.4f} ms ({dev_us} us device per launch), "
+        f"plain {plain:.4f} ms, bound {b:.6f} ms ({by})")
     return {"name": "capscore_multi", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/capscore.cu",
             "replaces": "src/repro/kernels/capscore/capscore.py:270",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None}
+            "bound_ms": b, "bound_by": by, "library_ms": None}, dev_us
 
 
 def check_capscore(device, rng) -> dict:
@@ -336,14 +397,16 @@ def check_capscore(device, rng) -> dict:
     N = 2048
     ms = cuda_ms(lambda: ops.capscore_cuda(*elems, 16.0, float("inf"), SALT))
     plain = cuda_ms(lambda: ops.capscore_ref(*elems, 16.0, float("inf"), SALT))
+    dev_us = _device_profile(lambda: ops.capscore_cuda(*elems, 16.0, float("inf"), SALT), 20,
+                             "capscore_kernel")["kernel_device_us_per_launch"]
     b, by = bound_ms(12 * N + 12 * N, N * 120)
-    log(f"capscore N={N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b:.6f} ms ({by})")
+    log(f"capscore N={N}: kernel {ms:.4f} ms ({dev_us} us device per launch), "
+        f"plain {plain:.4f} ms, bound {b:.6f} ms ({by})")
     return {"name": "capscore", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/capscore.cu",
             "replaces": "src/repro/kernels/capscore/capscore.py:166",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None}
+            "bound_ms": b, "bound_by": by, "library_ms": None}, dev_us
 
 
 FLASH_CASES = ((2, 4, 4, 256, 64), (2, 4, 2, 256, 64), (2, 8, 1, 384, 128),
@@ -482,6 +545,188 @@ def check_flash_attention(device, seed: int) -> tuple[dict, dict]:
             "library_ms": library}, prefill
 
 
+# the two-tower pooling at serve_p99 and serve_bulk: N history rows of
+# D = 256 into B bags of 50 (phase 8's shapes); and an unsorted scatter, the
+# kernel's GNN use: 2^24 rows of D = 64, Zipf(1.2) ids over 2^20 segments
+SEGSUM_SERVE = ((25_600, 256, 512), (13_107_200, 256, 262_144))
+SEGSUM_SCATTER = (1 << 24, 64, 1 << 20)
+SEGSUM_TABLE_ROWS = 1_000_000  # the op-level comparison's table
+SEGSUM_RTOL = 1e-5  # and atol 1e-5 * max|want|: f32 sums taken in other orders
+
+
+def _segsum_error(got, want, exact: bool = False) -> float:
+    """Max |got - want|; raises unless within rtol 1e-5 and atol 1e-5 *
+    max|want| (equal where ``exact``)."""
+    import torch
+
+    d = (got - want).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    if exact:
+        ok = torch.equal(got, want)
+    else:
+        atol = SEGSUM_RTOL * (float(want.abs().max()) if want.numel() else 0.0)
+        ok = bool((d <= atol + SEGSUM_RTOL * want.abs()).all())
+    if not (ok and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"max abs err {err}" + (" (must be exact)" if exact else ""))
+    return err
+
+
+def _segsum_case(ops, vals, seg, S: int, what: str, exact: bool = False) -> float:
+    """The kernel twice (bit-identical) against the plain version."""
+    import torch
+
+    got = ops.segment_sum_cuda(vals, seg, n_segments=S)
+    again = ops.segment_sum_cuda(vals, seg, n_segments=S)
+    want = ops.segment_sum_ref(vals, seg, n_segments=S)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"segment_sum {what}: two launches differ")
+    try:
+        return _segsum_error(got, want, exact)
+    except AssertionError as e:
+        raise AssertionError(f"segment_sum {what}: {e}") from None
+
+
+def check_segment_sum(device, rng) -> tuple[dict, dict]:
+    """Phase 2d: the kernel's entry for the ``kernels`` line (at serve_bulk's
+    shape), and the readings at both serving shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data.streams import zipf_keys
+    from repro_torch.kernels.embedding_bag import ops
+
+    def put(a, dtype=None):
+        t = torch.from_numpy(a).to(device)
+        return t if dtype is None else t.to(dtype)
+
+    n_cases, err = 0, 0.0
+    # the reference test space, ids sorted and not
+    for N in (1, 255, 257, 1000, 2000):
+        for D in (8, 64, 256):
+            for S in (4, 128, 1024):
+                vals = put(rng.normal(size=(N, D)).astype(np.float32))
+                segs = rng.integers(0, S, N)
+                for order in ("unsorted", "sorted"):
+                    seg = put((np.sort(segs) if order == "sorted" else segs).astype(np.int32))
+                    err = max(err, _segsum_case(ops, vals, seg, S, f"N={N} D={D} S={S} {order}"))
+                    n_cases += 1
+    # tests/test_kernels.py's unsorted case with empty segments: exact
+    _segsum_case(ops, put(np.ones((512, 16), np.float32)),
+                 put(np.tile([7, 3, 7, 0], 128).astype(np.int32)), 10, "tile([7,3,7,0])",
+                 exact=True)
+    vals = put(rng.normal(size=(3000, 64)).astype(np.float32))
+    i32 = lambda a: a.astype(np.int32)  # noqa: E731
+    cases = [("mostly empty segments", vals[:100], i32(rng.integers(0, 5000, 100)), 5000),
+             ("negative ids and ids >= S", vals, i32(rng.integers(-300, 1300, 3000)), 1000),
+             ("sorted, out of range at both ends", vals,
+              i32(np.sort(rng.integers(-300, 1300, 3000))), 1000),
+             ("all rows dropped", vals, i32(np.full(3000, -1)), 1000),
+             ("bf16 rows", vals.bfloat16(), i32(rng.integers(0, 700, 3000)), 700),
+             ("f16 rows", vals.half(), i32(rng.integers(0, 700, 3000)), 700),
+             ("ragged D=3", vals[:, :3], i32(rng.integers(0, 50, 3000)), 50),
+             ("int64 ids", vals, rng.integers(0, 700, 3000).astype(np.int64), 700)]
+    for what, v, segs, S in cases:
+        err = max(err, _segsum_case(ops, v, put(segs), S, what))
+    ints = put(rng.integers(-50, 51, (65536, 64)).astype(np.float32))
+    _segsum_case(ops, ints, put(rng.integers(0, 1000, 65536).astype(np.int32)), 1000,
+                 "integer-valued rows", exact=True)
+    n_cases += len(cases) + 2
+    # embedding_bag: sum / mean / per-sample weights, -1 padding, a bag of padding only
+    V, B, L = 100_000, 512, 50
+    table = put((rng.normal(size=(V, 256)) * 0.01).astype(np.float32))
+    ids = rng.integers(0, V, B * L)
+    ids[rng.random(B * L) < 0.1] = -1
+    ids[:L] = -1
+    ids, bags = put(ids), torch.arange(B, device=device).repeat_interleave(L)
+    psw = put(rng.random(B * L).astype(np.float32) + 0.5)
+    for mode in ("sum", "mean"):
+        for w in (None, psw):
+            got = ops.embedding_bag(table, ids, bags, n_bags=B, mode=mode, per_sample_weights=w)
+            want = ops.embedding_bag_ref(table, ids, bags, n_bags=B, mode=mode,
+                                         per_sample_weights=w)
+            torch.cuda.synchronize()
+            try:
+                err = max(err, _segsum_error(got, want))
+            except AssertionError as e:
+                raise AssertionError(f"embedding_bag {mode} weighted={w is not None}: {e}") \
+                    from None
+            n_cases += 1
+    del table
+    # the unsorted scatter: Zipf-hot segments hold millions of rows
+    N, D, S = SEGSUM_SCATTER
+    vals = torch.randn((N, D), generator=torch.Generator(device=device).manual_seed(1),
+                       device=device)
+    seg = put(zipf_keys(rng, N, 1.2, S).astype(np.int32))
+    t0 = time.perf_counter()
+    err = max(err, _segsum_case(ops, vals, seg, S, f"scatter N={N} D={D} S={S}"))
+    scatter_s = time.perf_counter() - t0
+    del vals, seg
+    torch.cuda.empty_cache()
+    log(f"segment_sum: {n_cases + 1} cases within rtol {SEGSUM_RTOL} / atol 1e-5 max|want| "
+        f"of the plain version (integer-valued ones exact), two launches bit-identical each; "
+        f"max abs err {err:.3e}; the Zipf scatter (N={N}, D={D}, S={S}) checked in "
+        f"{scatter_s:.2f} s")
+
+    readings = {}
+    for N, D, S in SEGSUM_SERVE:
+        vals = torch.randn((N, D), generator=torch.Generator(device=device).manual_seed(N),
+                           device=device).mul_(0.01)
+        seg = torch.arange(S, device=device, dtype=torch.int32).repeat_interleave(N // S)
+        case_err = _segsum_case(ops, vals, seg, S, f"serving shape N={N}")
+        err = max(err, case_err)
+        big = N > 1_000_000
+        it = (10, 3) if big else (200, 20)
+        ms = cuda_ms(lambda: ops.segment_sum_cuda(vals, seg, n_segments=S), *it)
+        plain = cuda_ms(lambda: ops.segment_sum_ref(vals, seg, n_segments=S), *it)
+        seg64 = seg.long()
+        library = cuda_ms(lambda: torch.zeros((S, D), device=device).index_add_(0, seg64, vals),
+                          *it)
+        prof = _device_profile(lambda: ops.segment_sum_cuda(vals, seg, n_segments=S), 5,
+                               "segment_sum_kernel")
+        dev_us = prof["kernel_device_us_per_launch"]
+        # bytes: the rows and the ids read once, out written once (f32)
+        b, by = bound_ms(4 * N * D + 4 * N + 4 * S * D, N * D)
+        del vals
+        # the op level: the two-tower pooling over a 1M-row table (Zipf ids,
+        # 10% padding) against F.embedding_bag(mode="mean", padding_idx=0)
+        V = SEGSUM_TABLE_ROWS
+        table = torch.randn((V, D), generator=torch.Generator(device=device).manual_seed(V),
+                            device=device).mul_(0.01)
+        hist = put(zipf_keys(rng, N, 1.2, V))
+        hist[put(rng.random(N) < 0.1)] = 0
+        ids = torch.where(hist > 0, hist, -1)
+        bags = seg.long()
+        offsets = torch.arange(0, N, N // S, device=device)
+        op = ops.embedding_bag(table, ids, bags, n_bags=S, mode="mean")
+        lib_op = F.embedding_bag(hist, table, offsets, mode="mean", padding_idx=0)
+        torch.cuda.synchronize()
+        op_err = _segsum_error(op, lib_op)
+        op_ms = cuda_ms(lambda: ops.embedding_bag(table, ids, bags, n_bags=S, mode="mean"), *it)
+        lib_op_ms = cuda_ms(lambda: F.embedding_bag(hist, table, offsets, mode="mean",
+                                                    padding_idx=0), *it)
+        readings[f"N={N}"] = {
+            "N": N, "D": D, "S": S, "max_abs_err": case_err, "ms": ms, "plain_ms": plain,
+            "index_add_ms": library, "device_us_per_launch": dev_us, "profile": prof,
+            "bound_ms": b,
+            "bound_by": by, "embedding_bag_op_ms": op_ms,
+            "F_embedding_bag_mean_ms": lib_op_ms, "op_vs_F_embedding_bag_max_abs": op_err}
+        log(f"segment_sum N={N} D={D} S={S} (sorted bags): kernel {ms:.4f} ms per call "
+            f"({dev_us} us device per launch), plain {plain:.4f} ms, index_add_ "
+            f"{library:.4f} ms, bound {b:.6f} ms ({by}); ops.embedding_bag(mean) over a "
+            f"{V}-row table {op_ms:.4f} ms, F.embedding_bag(mean, padding_idx=0) "
+            f"{lib_op_ms:.4f} ms (max abs diff {op_err:.3e})")
+        del table, hist, ids, bags, offsets, op, lib_op, seg, seg64
+        torch.cuda.empty_cache()
+    bulk = readings[f"N={SEGSUM_SERVE[-1][0]}"]
+    return {"name": "segment_sum", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+            "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:52",
+            "launches": None, "max_abs_err": err, "ms": bulk["ms"],
+            "plain_ms": bulk["plain_ms"], "bound_ms": bulk["bound_ms"],
+            "bound_by": bulk["bound_by"], "library_ms": bulk["index_add_ms"]}, readings
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path
 # ---------------------------------------------------------------------------
@@ -504,6 +749,7 @@ def run_main_path(seed: int, n: int, batch: int) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import freqfns, segments
+    from repro_torch.data.streams import zipf_keys
     from repro_torch.kernels.capscore import ops as cops
     from repro_torch.kernels.chunksort import ops as sops
     from repro_torch.stats.service import StatsConfig, StreamStatsService
@@ -580,6 +826,7 @@ def run_main_path(seed: int, n: int, batch: int) -> dict:
 def run_state_round_trip(seed: int, n: int) -> None:
     import numpy as np
     from repro_torch.core import segments
+    from repro_torch.data.streams import zipf_keys
     from repro_torch.stats.service import StatsConfig, StreamStatsService
 
     rng = np.random.default_rng(seed + 1)
@@ -611,6 +858,7 @@ def run_profile(seed: int, steps: int) -> dict:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.streams import zipf_keys
     from repro_torch.stats.service import StatsConfig, StreamStatsService
 
     cfg = StatsConfig()
@@ -725,6 +973,7 @@ def _distributed_rank(rank: int, P: int, seed: int, n: int, batch: int,
     import torch
     import torch.distributed as dist
     from repro_torch.core import distributed as DZ
+    from repro_torch.data.streams import zipf_keys
     from repro_torch.stats.service import StatsConfig, StreamStatsService
 
     torch.cuda.set_device(0)
@@ -968,41 +1217,6 @@ def _all_counters():
     return {**_counters(), "flash_attention": fops.flash_attention_cuda}
 
 
-def _device_profile(fn, calls: int) -> dict:
-    """``torch.profiler`` over ``calls`` calls of ``fn``: device time and
-    kernel launches per call, the device's busy share of the wall time, and
-    the attention kernel's share and device time per launch."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us, launches, flash_us, flash_n = 0.0, 0, 0.0, 0
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        busy_us += dev_us
-        launches += e.count
-        if "flash_kernel" in e.key:
-            flash_us += dev_us
-            flash_n += e.count
-    return {"calls": calls, "wall_ms_per_call": wall * 1e3 / calls,
-            "device_busy_ms_per_call": busy_us * 1e-3 / calls,
-            "device_busy_share": busy_us * 1e-6 / wall,
-            "kernel_launches_per_call": launches / calls,
-            "attention_device_ms_per_call": flash_us * 1e-3 / calls,
-            "attention_share_of_device": flash_us / busy_us if busy_us else None,
-            "attention_device_us_per_launch": flash_us / flash_n if flash_n else None}
-
-
 def run_lm_serving(seed: int, device) -> dict:
     import dataclasses
 
@@ -1049,7 +1263,8 @@ def run_lm_serving(seed: int, device) -> dict:
                max_memory_allocated_prefill=(torch.cuda.max_memory_allocated()
                                              if device.type == "cuda" else None))
     if device.type == "cuda":
-        out["prefill_profile"] = _device_profile(lambda: T.prefill(params, cfg, tokens), 1)
+        out["prefill_profile"] = _device_profile(lambda: T.prefill(params, cfg, tokens), 1,
+                                                 "flash_kernel")
 
     sync()
     t0 = time.perf_counter()
@@ -1094,7 +1309,7 @@ def run_lm_serving(seed: int, device) -> dict:
     del f_logits, full
     if device.type == "cuda":  # the last step again: it rewrites the same k/v
         out["decode_profile"] = _device_profile(
-            lambda: T.decode_step(params, cfg, fed[-1], cache, pos), 4)
+            lambda: T.decode_step(params, cfg, fed[-1], cache, pos), 4, "flash_kernel")
     del cache
 
     server = serve.DecodeServer(cfg, params, slots=4, max_len=24 + 16, device=device)
@@ -1126,9 +1341,9 @@ def run_lm_serving(seed: int, device) -> dict:
         f"{out['prefill_ms']:.1f} ms ({out['prefill_tokens_per_s']:.1f} tokens/s, plain path "
         f"{out['plain_prefill_ms']:.1f} ms), max_memory_allocated "
         f"{out['max_memory_allocated_prefill']} B, launches {out['launches']}; attention "
-        f"{prof.get('attention_device_ms_per_call')} ms of "
+        f"{prof.get('kernel_device_ms_per_call')} ms of "
         f"{prof.get('device_busy_ms_per_call')} ms device time "
-        f"({prof.get('attention_device_us_per_launch')} us per launch, device busy "
+        f"({prof.get('kernel_device_us_per_launch')} us per launch, device busy "
         f"{prof.get('device_busy_share')}); decode {out['decode_ms_per_step']:.2f} ms per "
         f"step ({out['decode_tokens_per_s']:.1f} tokens/s; profiled: "
         f"{dprof.get('kernel_launches_per_call')} kernel launches and "
@@ -1151,6 +1366,253 @@ def run_lm_serving(seed: int, device) -> dict:
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# ---------------------------------------------------------------------------
+# phase 8: recsys serving at full size
+# ---------------------------------------------------------------------------
+
+# the reference's RECSYS_SHAPES (its configs package): serve batches, and one
+# user against 2^20 candidates (1M ids padded with repeats)
+RECSYS_SERVE = {"serve_p99": 512, "serve_bulk": 262_144}
+RETRIEVAL_CANDIDATES, RETRIEVAL_DISTINCT = 1 << 20, 1_000_000
+RECSYS_CALLS = 5      # timed calls per shape; the median is kept
+PLAIN_SLICE = 16_384  # requests per call of the plain route (it makes [B, S, D] twice)
+N_HOT = 4096
+# the sketch that picks the hot rows holds 4x as many keys: a sketch of k <=
+# n_hot keys makes every sampled key hot, and the estimated hot share 1
+HOT_SKETCH_K = 4 * N_HOT
+
+
+def _plain_pool(items, hist):
+    """The reference's formula for the two-tower pooling."""
+    from repro_torch.models import recsys as R
+
+    return R.masked_mean(R.embed_lookup(items, hist), hist)
+
+
+def _timed_calls(fn, sync, calls: int) -> tuple:
+    """(last result, median seconds per call) over ``calls`` calls, each
+    between synchronisations."""
+    import statistics
+
+    secs = []
+    for _ in range(calls):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs.append(time.perf_counter() - t0)
+    return out, statistics.median(secs)
+
+
+def _hold(failures: list, what: str, got, want) -> float:
+    try:
+        return _segsum_error(got.float(), want.float())
+    except AssertionError as e:
+        failures.append(f"{what}: {e}")
+        return float("nan")
+
+
+def _profile_line(prof: dict) -> str:
+    if not prof:
+        return "not profiled"
+    return (f"profiled: device busy {prof['device_busy_ms_per_call']:.4f} ms per call "
+            f"({100 * prof['device_busy_share']:.2f}% of the wall time), "
+            f"{prof['kernel_launches_per_call']:.1f} kernel launches per call, "
+            f"segment_sum {prof['kernel_device_ms_per_call']:.4f} ms per call "
+            f"({prof['kernel_device_us_per_launch']} us per launch)")
+
+
+def _topk_cut_ties(failures: list, vals, idx, p_vals, p_idx) -> int:
+    """Indices in one top-k only; each must score within tolerance of its
+    own side's cut (a tie), else it goes to ``failures``."""
+    tol = SEGSUM_RTOL * float(p_vals.abs().max()) + SEGSUM_RTOL * float(p_vals[-1].abs())
+    got = dict(zip(idx.tolist(), vals.tolist()))
+    want = dict(zip(p_idx.tolist(), p_vals.tolist()))
+    diff = set(got) ^ set(want)
+    for i in diff:
+        score, cut = (got[i], float(vals[-1])) if i in got else (want[i], float(p_vals[-1]))
+        if abs(score - cut) > tol:
+            failures.append(f"candidate {i} is in one top-k only, {score} against the cut {cut}")
+    return len(diff)
+
+
+def run_recsys_serving(seed: int, device) -> dict:
+    """Phase 8: two-tower-retrieval at full size (61.44 GB of f32 tables) at
+    serve_p99, serve_bulk and retrieval_cand, each held against the plain
+    pooling route; the hot/cold plan from a sketch of the serve_bulk batch's
+    item stream; then din, bst and mind at serve_p99."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import bst, din, mind, two_tower_retrieval
+    from repro_torch.data.recsys_events import impression_batch, impression_stream_elements
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.models import embedding_sharding as es
+    from repro_torch.models import recsys as R
+    from repro_torch.stats.service import StatsConfig, StreamStatsService
+
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def mem():
+        return ((torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
+                if cuda else (None, None))
+
+    free()
+    cfg = two_tower_retrieval.full_config()
+    out = {"arch": cfg.name, "n_items": cfg.n_items, "n_users": cfg.n_users,
+           "embed_dim": cfg.embed_dim, "n_params": cfg.n_params, "shapes": {}}
+    t0 = time.perf_counter()
+    params = R.twotower_init(torch.Generator(device=device).manual_seed(seed), cfg)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    out["table_bytes"] = sum(params[t].numel() * params[t].element_size()
+                             for t in ("items", "users"))
+    failures, launches = [], 0
+    rng = np.random.default_rng(seed + 8)
+    bulk_host = None
+    for shape, B in RECSYS_SERVE.items():
+        host = impression_batch(rng, batch=B, seq_len=cfg.seq_len, n_items=cfg.n_items,
+                                n_users=cfg.n_users)
+        batch = {k: torch.from_numpy(host[k]).to(device) for k in ("hist", "target", "user_id")}
+        R.twotower_serve(params, cfg, batch)  # warm-up
+        free()
+        eops.segment_sum_cuda.launches = 0
+        scores, sec = _timed_calls(lambda: R.twotower_serve(params, cfg, batch), sync,
+                                   RECSYS_CALLS)
+        n = eops.segment_sum_cuda.launches
+        launches += n
+        alloc, reserved = mem()
+        if n != 2 * RECSYS_CALLS:  # the rows, then the counts, per call
+            failures.append(f"{shape}: segment_sum launched {n} times in {RECSYS_CALLS} calls")
+        want = torch.cat([R.twotower_serve(params, cfg, {k: v[i:i + PLAIN_SLICE]
+                                                         for k, v in batch.items()},
+                                           pool=_plain_pool)
+                          for i in range(0, B, PLAIN_SLICE)])
+        err = _hold(failures, f"{shape} scores vs the plain route", scores, want)
+        if tuple(scores.shape) != (B,):
+            failures.append(f"{shape}: scores of shape {tuple(scores.shape)}")
+        del want
+        prof = (_device_profile(lambda: R.twotower_serve(params, cfg, batch), 3,
+                                "segment_sum_kernel") if cuda else {})
+        out["shapes"][shape] = {
+            "batch": B, "ms_per_call": sec * 1e3, "requests_per_s": B / sec,
+            "segment_sum_launches_per_call": n / RECSYS_CALLS,
+            "max_memory_allocated": alloc, "max_memory_reserved": reserved,
+            "max_abs_err_vs_plain": err, "profile": prof}
+        log(f"phase 8 {shape} (B={B}): {sec * 1e3:.4f} ms per call (median of "
+            f"{RECSYS_CALLS}), {B / sec:.1f} requests/s, segment_sum launches per call "
+            f"{n / RECSYS_CALLS}, max_memory_allocated {alloc} B, reserved {reserved} B; "
+            f"max abs err vs the plain route {err:.3e}; {_profile_line(prof)}")
+        if shape == "serve_bulk":
+            bulk_host = host
+        del batch, scores
+        free()
+
+    # retrieval_cand: one user against 1M distinct candidates padded to 2^20
+    host = impression_batch(rng, batch=1, seq_len=cfg.seq_len, n_items=cfg.n_items,
+                            n_users=cfg.n_users)
+    cand = rng.permutation(cfg.n_items)[:RETRIEVAL_DISTINCT]
+    cand = np.concatenate([cand, cand[:RETRIEVAL_CANDIDATES - RETRIEVAL_DISTINCT]])
+    batch = {k: torch.from_numpy(host[k]).to(device) for k in ("hist", "target", "user_id")}
+    batch["candidates"] = torch.from_numpy(cand.astype(np.int32)).to(device)
+    R.twotower_retrieve(params, cfg, batch)
+    free()
+    eops.segment_sum_cuda.launches = 0
+    (vals, idx), sec = _timed_calls(lambda: R.twotower_retrieve(params, cfg, batch), sync,
+                                    RECSYS_CALLS)
+    n = eops.segment_sum_cuda.launches
+    launches += n
+    alloc, reserved = mem()
+    if n != 2 * RECSYS_CALLS:
+        failures.append(f"retrieval_cand: segment_sum launched {n} times in "
+                        f"{RECSYS_CALLS} calls")
+    prof = (_device_profile(lambda: R.twotower_retrieve(params, cfg, batch), 3,
+                            "segment_sum_kernel") if cuda else {})
+    p_vals, p_idx = R.twotower_retrieve(params, cfg, batch, pool=_plain_pool)
+    err = _hold(failures, "retrieval_cand top-100 scores vs the plain route", vals, p_vals)
+    cut_ties = _topk_cut_ties(failures, vals, idx, p_vals, p_idx)
+    out["shapes"]["retrieval_cand"] = {
+        "batch": 1, "candidates": RETRIEVAL_CANDIDATES, "ms_per_call": sec * 1e3,
+        "requests_per_s": 1 / sec, "candidates_per_s": RETRIEVAL_CANDIDATES / sec,
+        "segment_sum_launches_per_call": n / RECSYS_CALLS, "max_memory_allocated": alloc,
+        "max_memory_reserved": reserved, "max_abs_err_vs_plain": err,
+        "top100_index_differences_at_tied_cut": cut_ties, "profile": prof}
+    log(f"phase 8 retrieval_cand (1 user, {RETRIEVAL_CANDIDATES} candidates, top-100): "
+        f"{sec * 1e3:.4f} ms per call, segment_sum launches per call {n / RECSYS_CALLS}, "
+        f"max_memory_allocated {alloc} B, reserved {reserved} B; top-100 max abs err vs the "
+        f"plain route {err:.3e}, {cut_ties} indices differ at a tied cut; "
+        f"{_profile_line(prof)}")
+    del batch, vals, idx, p_vals, p_idx
+    free()
+
+    # the paper's loop: a sketch of the serve_bulk item stream picks the hot rows
+    _, items = impression_stream_elements(bulk_host)
+    svc = StreamStatsService(StatsConfig(k=HOT_SKETCH_K), device=device)
+    sync()
+    t0 = time.perf_counter()
+    for lo in range(0, len(items), 1 << 20):
+        svc.observe(items[lo:lo + (1 << 20)])
+    sync()
+    observe_s = time.perf_counter() - t0
+    plan = es.plan_hot_cold(svc, N_HOT)
+    hot_table, hot_ids = es.split_table(params["items"], plan)
+    exact_frac = float(np.isin(items, plan.hot_ids_sorted).mean())
+    hist = bulk_host["hist"]
+    for lo in range(0, len(hist), PLAIN_SLICE):
+        h = torch.from_numpy(hist[lo:lo + PLAIN_SLICE]).to(device)
+        if not torch.equal(es.hot_cold_lookup(params["items"], hot_table, hot_ids, h),
+                           R.embed_lookup(params["items"], h)):
+            failures.append(f"hot_cold_lookup differs from embed_lookup on requests {lo}+")
+            break
+    out["hot_cold"] = {"stream_elements": len(items), "sketch_k": HOT_SKETCH_K,
+                       "observe_s": observe_s,
+                       "elements_per_s": len(items) / observe_s, "n_hot": N_HOT,
+                       "est_hot_traffic_frac": plan.est_hot_traffic_frac,
+                       "exact_hot_traffic_frac": exact_frac}
+    log(f"phase 8 hot/cold: the service (k={HOT_SKETCH_K}) observed the serve_bulk batch's "
+        f"{len(items)} item ids in {observe_s:.2f} s ({len(items) / observe_s:.4g} elements/s); "
+        f"plan_hot_cold({N_HOT}): estimated hot-traffic share "
+        f"{plan.est_hot_traffic_frac:.6f}, exact {exact_frac:.6f}; hot_cold_lookup equals "
+        f"embed_lookup on all {hist.size} ids")
+    del params, hot_table, hot_ids, svc, bulk_host, hist, items
+    free()
+
+    # din, bst and mind at serve_p99
+    out["others"] = {}
+    B = RECSYS_SERVE["serve_p99"]
+    for mod, fn in ((din, R.din_forward), (bst, R.bst_forward), (mind, R.mind_point_serve)):
+        mcfg = mod.full_config()
+        mparams = R.ARCHS[mod.ARCH_ID][1](torch.Generator(device=device).manual_seed(seed),
+                                          mcfg)
+        host = impression_batch(rng, batch=B, seq_len=mcfg.seq_len, n_items=mcfg.n_items,
+                                n_users=1)
+        batch = {k: torch.from_numpy(host[k]).to(device) for k in ("hist", "target")}
+        fn(mparams, mcfg, batch)
+        scores, sec = _timed_calls(lambda: fn(mparams, mcfg, batch), sync, RECSYS_CALLS)
+        finite = bool(torch.isfinite(scores).all())
+        if tuple(scores.shape) != (B,) or not finite:
+            failures.append(f"{mod.ARCH_ID}: scores of shape {tuple(scores.shape)}, "
+                            f"finite {finite}")
+        out["others"][mod.ARCH_ID] = {"batch": B, "ms_per_call": sec * 1e3,
+                                      "requests_per_s": B / sec}
+        log(f"phase 8 {mod.ARCH_ID} at serve_p99 (B={B}): {sec * 1e3:.4f} ms per call, "
+            f"scores {tuple(scores.shape)} finite")
+        del mparams, batch, scores
+        free()
+    out["launches"] = {"segment_sum": launches}
+    if failures:
+        raise CheckFailed(failures, out)
+    return out
 
 
 def main(argv=None) -> int:
@@ -1186,26 +1648,45 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     exact_f32()
-    kernels = [check_chunksort(device, rng), check_capscore_agg(device, rng),
-               check_capscore_multi(device, rng), check_capscore(device, rng)]
-    flash, flash_prefill = check_flash_attention(device, args.seed)
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    kernels = [timed("2 chunksort", check_chunksort, device, rng),
+               timed("2 capscore_agg", check_capscore_agg, device, rng)]
+    device_us = {}
+    for check in (check_capscore_multi, check_capscore):
+        entry, device_us[entry["name"]] = timed(f"2 {check.__name__[6:]}", check, device, rng)
+        kernels.append(entry)
+    flash, flash_prefill = timed("2c", check_flash_attention, device, args.seed)
     kernels.append(flash)
+    segsum, segsum_serving = timed("2d", check_segment_sum, device, rng)
+    kernels.append(segsum)
 
-    main_path = run_main_path(args.seed, 1 << 24, 1 << 20)
-    run_state_round_trip(args.seed, 1 << 22)
+    main_path = timed("3", run_main_path, args.seed, 1 << 24, 1 << 20)
+    timed("4", run_state_round_trip, args.seed, 1 << 22)
 
-    profile = run_profile(args.seed, PROFILE_STEPS)
-    distributed = run_distributed(args.seed, 1 << 24, 1 << 20)
-    lm = run_lm_serving(args.seed, device)
+    profile = timed("5", run_profile, args.seed, PROFILE_STEPS)
+    distributed = timed("6", run_distributed, args.seed, 1 << 24, 1 << 20)
+    lm = timed("7", run_lm_serving, args.seed, device)
+    recsys = timed("8", run_recsys_serving, args.seed, device)
+    log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     launches = {**main_path["launches"], **distributed["launches"],
-                "flash_attention": lm["launches"]["flash_attention"]}
+                "flash_attention": lm["launches"]["flash_attention"], **recsys["launches"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "seed": args.seed, "kernels": kernels,
-         "flash_attention_prefill_shape": flash_prefill, "main_path": main_path,
-         "distributed": distributed, "lm_serving": lm, "seconds": time.perf_counter() - t_start},
+         "device_us_per_launch_phase2": device_us,
+         "flash_attention_prefill_shape": flash_prefill,
+         "segment_sum_serving_shapes": segsum_serving, "main_path": main_path,
+         "distributed": distributed, "lm_serving": lm, "recsys_serving": recsys,
+         "seconds": time.perf_counter() - t_start, "phase_seconds": phase_s},
         indent=1))
     (OUT_DIR / "profile_chunk_step.json").write_text(json.dumps(profile, indent=1))
     print(smi)

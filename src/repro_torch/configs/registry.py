@@ -1,15 +1,16 @@
 """Architecture registry of the port: ``--arch <id>`` -> config.
 
-Only the dense LM architectures are ported so far; any other id of the
-reference's registry raises ``KeyError``.
+Ported so far: the dense LM architectures and the four recsys models; any
+other id of the reference's registry raises ``KeyError``.
 """
 from __future__ import annotations
 
 from typing import Any
 
-from . import codeqwen1_5_7b, qwen3_8b, yi_6b
+from . import bst, codeqwen1_5_7b, din, mind, qwen3_8b, two_tower_retrieval, yi_6b
 
-_MODULES = {m.ARCH_ID: m for m in (yi_6b, codeqwen1_5_7b, qwen3_8b)}
+_MODULES = {m.ARCH_ID: m for m in (yi_6b, codeqwen1_5_7b, qwen3_8b, din, bst, mind,
+                                   two_tower_retrieval)}
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -24,3 +25,8 @@ def _module(arch_id: str):
 def get_config(arch_id: str, *, smoke: bool = False) -> Any:
     m = _module(arch_id)
     return m.smoke_config() if smoke else m.full_config()
+
+
+def family(arch_id: str) -> str:
+    """"lm" or "recsys"."""
+    return _module(arch_id).FAMILY

@@ -8,7 +8,9 @@ the stream exactly where the other package left it.
 A transformer's parameters are the reference ``init_params`` tree (nested
 dicts, layer leaves stacked on [L, ...]) with numpy leaves; bf16 leaves are
 numpy's ``bfloat16`` extension type on the reference side and travel as
-their 16-bit patterns.
+their 16-bit patterns.  A recsys model's are the reference's ``*_init``
+tree: dicts, MLPs as lists of ``{"w", "b"}``, BST's ``blocks`` stacked on
+[n_blocks, ...].
 """
 from __future__ import annotations
 
@@ -89,6 +91,12 @@ def _check_tree(tree, shapes, where="params"):
             raise KeyError(f"{where}: expected keys {sorted(shapes)}, got {got}")
         for k in shapes:
             _check_tree(tree[k], shapes[k], f"{where}.{k}")
+    elif isinstance(shapes, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
+            got = len(tree) if isinstance(tree, (list, tuple)) else type(tree).__name__
+            raise KeyError(f"{where}: expected a list of {len(shapes)}, got {got}")
+        for i, (t, sh) in enumerate(zip(tree, shapes)):
+            _check_tree(t, sh, f"{where}[{i}]")
     elif tuple(tree.shape) != tuple(shapes):
         raise ValueError(f"{where}: shape {tuple(tree.shape)}, expected {tuple(shapes)}")
 
@@ -98,11 +106,16 @@ def transformer_params_from_reference(np_tree: dict, cfg, device) -> dict:
     the port's parameters: tensors on ``device`` in ``cfg.dtype``, the same
     tree and shapes."""
     # imported here: the model imports core.incremental, which imports this module
-    from .models.transformer import param_shapes, tree_map
+    from .models.transformer import param_shapes
 
-    _check_tree(np_tree, param_shapes(cfg))
-    return tree_map(lambda a: _tensor_from_np(np.asarray(a), device).to(cfg.dtype),
-                    np_tree)
+    return _params_from_reference(np_tree, param_shapes(cfg), cfg.dtype, device)
+
+
+def _params_from_reference(np_tree, shapes, dtype, device) -> dict:
+    from .models.transformer import tree_map
+
+    _check_tree(np_tree, shapes)
+    return tree_map(lambda a: _tensor_from_np(np.asarray(a), device).to(dtype), np_tree)
 
 
 def transformer_params_to_reference(params: dict) -> dict:
@@ -111,3 +124,17 @@ def transformer_params_to_reference(params: dict) -> dict:
     from .models.transformer import tree_map
 
     return tree_map(_np_from_tensor, params)
+
+
+def recsys_params_from_reference(np_tree: dict, arch: str, cfg, device) -> dict:
+    """A reference recsys model's ``*_init`` tree (numpy leaves) for ``arch``
+    (``two-tower-retrieval``, ``din``, ``bst`` or ``mind``) as the port's
+    parameters: tensors on ``device`` in ``cfg.dtype``, the same tree and
+    shapes."""
+    from .models.recsys import ARCHS
+
+    return _params_from_reference(np_tree, ARCHS[arch][0](cfg), cfg.dtype, device)
+
+
+# the port's recsys parameters as the reference's tree of numpy arrays
+recsys_params_to_reference = transformer_params_to_reference

@@ -19,9 +19,11 @@ import torch.nn.functional as F
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, scale=None):
     """N(0, scale^2) [d_in, d_out] weights, scale 1/sqrt(d_in) by default,
-    drawn in f32 from ``gen`` on its device and cast to ``dtype``."""
+    drawn in f32 from ``gen`` on its device and cast to ``dtype``.  Scaled
+    in place (the same f32 multiply as ``randn(...) * scale``), so an f32
+    table needs no second full-size temporary."""
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * scale
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device).mul_(scale)
     return w.to(dtype)
 
 

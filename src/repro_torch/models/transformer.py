@@ -114,9 +114,12 @@ def _init_layer(gen: torch.Generator, cfg: TransformerConfig) -> dict:
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of the same keys."""
+    """``fn`` over the leaves of nested dicts (of the same keys) and lists;
+    tuples are leaves (shapes)."""
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
     return fn(*trees)
 
 

@@ -18,6 +18,11 @@ IEEE operations in the same order and the same ``log1pf``).
 and of the kernel's plain blockwise version, the reference's own tolerances
 for its flash kernel (the online softmax sums in another order; a bf16
 output may round to the other side).
+``segment_sum`` / ``embedding_bag``: within rtol 1e-5 and atol 1e-5 * max|want|
+of the plain versions (both sum in f64 and round once to f32: the kernel
+each segment's rows in ascending row order, the plain version's CUDA
+``index_add_`` with atomics in any order); integer-valued rows exactly; two
+launches on the same input bit-identical.
 """
 import numpy as np
 import pytest
@@ -27,6 +32,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.segments import chunk_order  # noqa: E402
 from repro_torch.kernels.capscore import ops as cops  # noqa: E402
 from repro_torch.kernels.chunksort import ops as sops  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as eops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +201,85 @@ def test_flash_attention_cuda_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="last dim"):
         x = torch.zeros((1, 2, 64, 128), device="cuda").transpose(2, 3)
         fops.flash_attention_cuda(x, x, x)
+
+
+def _assert_sum_close(got, want):
+    tol = 1e-5 * float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("order", ["unsorted", "sorted", "out_of_range"])
+@pytest.mark.parametrize("N,D,S", [(1, 8, 4), (255, 64, 128), (257, 256, 1024),
+                                   (2000, 8, 1024), (2000, 256, 4), (1000, 3, 50),
+                                   (25_600, 256, 512)])
+def test_segment_sum_kernel_matches_plain(N, D, S, order, dtype):
+    _require_cuda()
+    rng = np.random.default_rng(N + D + S)
+    segs = rng.integers(-5 if order == "out_of_range" else 0,
+                        S + 5 if order == "out_of_range" else S, N)
+    if order == "sorted":
+        segs = np.sort(segs)
+    seg = torch.from_numpy(segs.astype(np.int32)).cuda()
+    vals = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)).cuda().to(dtype)
+    before = eops.segment_sum_cuda.launches
+    got = eops.segment_sum(vals, seg, n_segments=S)
+    again = eops.segment_sum(vals, seg, n_segments=S)
+    torch.cuda.synchronize()
+    assert eops.segment_sum_cuda.launches == before + 2
+    assert got.dtype == torch.float32 and tuple(got.shape) == (S, D)
+    assert torch.equal(got, again), "two launches differ"
+    _assert_sum_close(got, eops.segment_sum_ref(vals, seg, n_segments=S))
+
+
+def test_segment_sum_kernel_exact_on_integer_rows():
+    _require_cuda()
+    vals = torch.ones((512, 16), device="cuda")
+    seg = torch.from_numpy(np.tile([7, 3, 7, 0], 128).astype(np.int32)).cuda()
+    got = eops.segment_sum(vals, seg, n_segments=10)
+    assert got[7, 0] == 256 and got[3, 0] == 128 and got[0, 0] == 128
+    assert not got[[1, 2, 4, 5, 6, 8, 9]].any()
+    rng = np.random.default_rng(3)
+    ints = torch.from_numpy(rng.integers(-50, 50, (4096, 64)).astype(np.float32)).cuda()
+    seg = torch.from_numpy(rng.integers(0, 300, 4096).astype(np.int32)).cuda()
+    assert torch.equal(eops.segment_sum(ints, seg, n_segments=300),
+                       eops.segment_sum_ref(ints, seg, n_segments=300))
+    none = eops.segment_sum(ints, torch.full_like(seg, -1), n_segments=300)
+    assert not none.any()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_kernel_matches_plain(mode, weighted):
+    _require_cuda()
+    rng = np.random.default_rng(9)
+    V, D, B, bag = 5000, 256, 512, 50
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32)).cuda()
+    ids = rng.integers(0, V, B * bag)
+    ids[rng.random(B * bag) < 0.1] = -1
+    ids[:bag] = -1  # a bag of padding only
+    ids = torch.from_numpy(ids).cuda()
+    segs = torch.arange(B, device="cuda").repeat_interleave(bag)
+    psw = (torch.from_numpy(rng.random(B * bag).astype(np.float32)).cuda() + 0.5
+           if weighted else None)
+    before = eops.segment_sum_cuda.launches
+    got = eops.embedding_bag(table, ids, segs, n_bags=B, mode=mode, per_sample_weights=psw)
+    torch.cuda.synchronize()
+    assert eops.segment_sum_cuda.launches == before + (2 if mode == "mean" else 1)
+    assert not got[0].any()
+    _assert_sum_close(got, eops.embedding_bag_ref(table, ids, segs, n_bags=B, mode=mode,
+                                                  per_sample_weights=psw))
+
+
+def test_segment_sum_cuda_refuses_what_the_kernel_does_not_take():
+    _require_cuda()
+    seg = torch.zeros(8, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        eops.segment_sum_cuda(torch.zeros((8, 4), dtype=torch.float64, device="cuda"), seg,
+                              n_segments=2)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        eops.segment_sum_cuda(torch.zeros((8, 4), device="cuda"), seg.float(), n_segments=2)
+    with pytest.raises(ValueError, match=r"\[N, D\]"):
+        eops.segment_sum_cuda(torch.zeros((7, 4), device="cuda"), seg, n_segments=2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        eops.segment_sum_cuda(torch.zeros((8, 4)), seg.cpu(), n_segments=2)
