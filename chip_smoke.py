@@ -39,25 +39,30 @@ Phases, each of which fails the run if it fails:
              counts, every exact estimate lies within 5 stderr, and
              ``capscore_multi`` / ``capscore`` launched once per chunk step
              per rank.
-2c. flash_attention — the attention kernel against ``attention_ref`` on the
-             card (f32 math): (B,Hq,Hkv,S,D) = (2,4,4,256,64), (2,4,2,256,64),
+2c. flash_attention — the attention kernels against ``attention_ref`` on
+             the card (f32 math; bf16 runs the tensor-core kernel, f32 the
+             FMA kernel): (B,Hq,Hkv,S,D) = (2,4,4,256,64), (2,4,2,256,64),
              (2,8,1,384,128), (1,2,2,128,16) and a ragged (1,4,2,200,32), each
              causal and not, contiguous and strided, f32 (tolerance 2e-5)
              and bf16 (2e-2); and the
              serving prefill's shape (4,32,4,4096,128) causal, on the
              strided [B,S,H,D] views the prefill hands it, in f32 (2e-5) and
-             bf16 (atol 1e-4, rtol 2^-7: one bf16 ulp); timed in bf16 beside
-             the plain version and ``scaled_dot_product_attention``.
+             bf16 (atol 1e-4, rtol 2^-7: one bf16 ulp); the tensor-core
+             kernel timed beside the plain version and
+             ``scaled_dot_product_attention``, and the f32 FMA kernel timed.
 7. LM serving — yi-6b at full width (32 layers, d_model 4096, bf16, random
              weights from a seeded generator on the card), attention through
-             the kernel: a batched prefill of 4 prompts of 4096 tokens (32
-             kernel launches), profiled once; 32 greedy ``decode_step``s; the
+             the tensor-core kernel: a batched prefill of 4 prompts of 4096
+             tokens (32 launches of it and none of the FMA kernel, by the
+             counters and by the profile), profiled once; 32 greedy
+             ``decode_step``s; the
              prefill held against the plain chunked attention path and the
              last decode step against a plain prefill of all 4128 tokens;
              then ``DecodeServer`` answers the reference demo's 6 requests;
-             last, the weights upcast to f32, the prefill through the kernel
-             against the plain path again, where f32 sum orders are the only
-             difference and a subtle attention fault shows.
+             last, the weights upcast to f32, the prefill through the FMA
+             kernel (32 launches) against the plain path again, where f32 sum
+             orders are the only difference and a subtle attention fault
+             shows.
 2d. segment_sum — the segmented-sum kernel against ``segment_sum_ref`` on the
              card at rtol 1e-5 / atol 1e-5 max|want| (integer-valued rows
              exactly), each case launched twice (bit-identical): the
@@ -145,12 +150,13 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(fn, calls: int, tag: str) -> dict:
+def _device_profile(fn, calls: int, tag: str, others: tuple = ()) -> dict:
     """``torch.profiler`` over ``calls`` calls of ``fn``: device time and
     kernel launches per call, the device's busy share of the wall time, the
     device time of the kernels whose name holds ``tag`` (per call, as a
-    share of the device time, and per launch), and the kernels that took the
-    most device time."""
+    share of the device time, and per launch) and their launches per call,
+    the launches per call of the kernels whose name holds each of
+    ``others``, and the kernels that took the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -162,6 +168,7 @@ def _device_profile(fn, calls: int, tag: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us, launches, tag_us, tag_n, rows = 0.0, 0, 0.0, 0, []
+    other_n = dict.fromkeys(others, 0)
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
             continue
@@ -175,6 +182,8 @@ def _device_profile(fn, calls: int, tag: str) -> dict:
         if tag in e.key:
             tag_us += dev_us
             tag_n += e.count
+        for o in others:
+            other_n[o] += e.count if o in e.key else 0
     rows.sort(key=lambda r: -r["device_ms_per_call"])
     return {"calls": calls, "wall_ms_per_call": wall * 1e3 / calls,
             "device_busy_ms_per_call": busy_us * 1e-3 / calls,
@@ -183,6 +192,8 @@ def _device_profile(fn, calls: int, tag: str) -> dict:
             "kernel_device_ms_per_call": tag_us * 1e-3 / calls,
             "kernel_share_of_device": tag_us / busy_us if busy_us else None,
             "kernel_device_us_per_launch": tag_us / tag_n if tag_n else None,
+            "tag_launches_per_call": tag_n / calls,
+            "other_launches_per_call": {o: n / calls for o, n in other_n.items()},
             "top": rows[:8]}
 
 
@@ -459,16 +470,17 @@ def _closeness(got, want, atol: float, rtol: float) -> dict:
 
 
 def check_flash_prefill(gen) -> tuple:
-    """The kernel at the prefill shape, causal, in f32 and bf16, on the
-    strided views the prefill passes, against ``attention_ref`` at
-    ``PREFILL_TOL``.  Returns (readings, the bf16 q, k, v); raises
-    ``CheckFailed`` with the readings if either dtype fails."""
+    """The kernels at the prefill shape, causal, in f32 (the FMA kernel) and
+    bf16 (the tensor-core kernel), on the strided views the prefill passes,
+    against ``attention_ref`` at ``PREFILL_TOL``.  Returns (readings, {dtype:
+    (q, k, v)}); raises ``CheckFailed`` with the readings if either dtype
+    fails."""
     import torch
     from repro_torch.kernels.flash_attention import ops
 
-    readings, failures = {}, []
+    readings, failures, inputs = {}, [], {}
     for dtype in ("float32", "bfloat16"):
-        q, k, v = _flash_inputs(gen, PREFILL_SHAPE, getattr(torch, dtype), True)
+        q, k, v = inputs[dtype] = _flash_inputs(gen, PREFILL_SHAPE, getattr(torch, dtype), True)
         got = ops.flash_attention_cuda(q, k, v, causal=True)
         want = ops.attention_ref(q, k, v, causal=True)
         torch.cuda.synchronize()
@@ -484,7 +496,7 @@ def check_flash_prefill(gen) -> tuple:
         torch.cuda.empty_cache()
     if failures:
         raise CheckFailed(failures, readings)
-    return readings, (q, k, v)
+    return readings, inputs
 
 
 def check_flash_attention(device, seed: int) -> tuple[dict, dict]:
@@ -516,31 +528,49 @@ def check_flash_attention(device, seed: int) -> tuple[dict, dict]:
         f"{n_cases} cases (contiguous and strided); max abs err {err:.3e}")
 
     B, Hq, Hkv, S, D = PREFILL_SHAPE
-    prefill, (q, k, v) = check_flash_prefill(gen)
+    prefill, inputs = check_flash_prefill(gen)
     log(f"flash_attention {PREFILL_SHAPE} causal vs attention_ref: "
         + "; ".join(f"{dt} max abs {r['max_abs']:.3e}, relative L2 {r['rel_l2']:.3e}, "
                     f"worst |d| / (atol + rtol |want|) {r['worst_ratio']:.3f} "
                     f"(atol, rtol {PREFILL_TOL[dt]})" for dt, r in prefill.items()))
-    ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True), iters=10, warmup=2)
+    # operations: QK^T and P.V over the S(S+1)/2 unmasked (q, kv) pairs of
+    # each head, 2 FLOP per multiply-add (the tensor-core kernel's P_lo.V
+    # pass is not counted as work); bytes: q, k, v read once, o written once
+    n_ops = 4 * B * Hq * D * S * (S + 1) / 2
+    n_elems = 2 * B * Hq * S * D + 2 * B * Hkv * S * D
+    q32, k32, v32 = inputs.pop("float32")
+    fma_ms = cuda_ms(lambda: ops.flash_attention_cuda(q32, k32, v32, causal=True), iters=3,
+                     warmup=1)
+    fma_bound, fma_by = bound_ms(4 * n_elems, n_ops)
+    del q32, k32, v32
+    q, k, v = inputs.pop("bfloat16")
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True), iters=20, warmup=3)
+    dev_us = _device_profile(lambda: ops.flash_attention_cuda(q, k, v, causal=True), 5,
+                             "flash_tc_kernel")["kernel_device_us_per_launch"]
     plain = cuda_ms(lambda: ops.attention_ref(q, k, v, causal=True), iters=2, warmup=1)
     torch.cuda.empty_cache()
     library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                              enable_gqa=True),
                       iters=20, warmup=3)
-    # bytes: q, k, v read once, o written once (bf16); operations: QK^T and
-    # P.V over the S(S+1)/2 unmasked (q, kv) pairs of each head, 2 FLOP per
-    # multiply-add, at the bf16 tensor-core rate
-    n_bytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
-    n_ops = 4 * B * Hq * D * S * (S + 1) / 2
-    b, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_OPS_PER_S)
-    log(f"flash_attention {PREFILL_SHAPE} bf16 causal: "
-        f"kernel {ms:.4f} ms ({n_ops / ms * 1e-9:.2f} TFLOP/s), plain {plain:.4f} ms, "
-        f"scaled_dot_product_attention {library:.4f} ms, bound {b:.6f} ms ({by})")
+    b, by = bound_ms(2 * n_elems, n_ops, BF16_TENSOR_OPS_PER_S)
+    log(f"flash_attention {PREFILL_SHAPE} bf16 causal: tensor-core kernel {ms:.4f} ms "
+        f"({n_ops / ms * 1e-9:.2f} TFLOP/s; {dev_us} us device per launch), plain "
+        f"{plain:.4f} ms, scaled_dot_product_attention {library:.4f} ms "
+        f"({ms / library:.2f}x its time), bound {b:.6f} ms ({by}); f32 FMA kernel "
+        f"{fma_ms:.4f} ms ({n_ops / fma_ms * 1e-9:.2f} TFLOP/s), f32 bound {fma_bound:.6f} ms "
+        f"({fma_by}, FMA rate)")
+    max_abs = max(err, *(r["max_abs"] for r in prefill.values()))
+    prefill["timing"] = {"tc_ms": ms, "tc_tflops": n_ops / ms * 1e-9,
+                         "tc_device_us_per_launch": dev_us, "plain_ms": plain,
+                         "sdpa_ms": library, "bound_ms": b, "fma_f32_ms": fma_ms,
+                         "fma_f32_bound_ms": fma_bound}
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+            "sources": {"bfloat16": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                        "float32": "src/repro_torch/kernels/csrc/flash_attention.cu"},
             "replaces": "src/repro/kernels/flash_attention/flash_attention.py:72",
-            "launches": None,
-            "max_abs_err": max(err, *(r["max_abs"] for r in prefill.values())), "ms": ms,
+            "launches": None, "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain, "bound_ms": b, "bound_by": by,
             "library_ms": library}, prefill
 
@@ -1247,24 +1277,42 @@ def run_lm_serving(seed: int, device) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     counters = _all_counters()
-    for c in counters.values():
-        c.launches = 0
+    flash = counters["flash_attention"]
+
+    def reset_counters():
+        for c in counters.values():
+            c.launches = 0
+        flash.launches_tc = flash.launches_fma = 0
+
+    def hold_routes(what: str, tc: int, fma: int) -> None:
+        """The prefill's launches of the tensor-core and the FMA kernel."""
+        if (flash.launches_tc, flash.launches_fma) != (tc, fma):
+            failures.append(f"{what}: the tensor-core kernel launched {flash.launches_tc} "
+                            f"times and the FMA kernel {flash.launches_fma} (want {tc} and "
+                            f"{fma} in a prefill of {cfg.n_layers} layers)")
+
+    reset_counters()
     sync()
     t0 = time.perf_counter()
     logits, (ck, cv) = T.prefill(params, cfg, tokens)
     sync()
     t_prefill = time.perf_counter() - t0
     out["launches"] = {name: c.launches for name, c in counters.items()}
+    out["launches"].update(flash_attention_tc=flash.launches_tc,
+                           flash_attention_fma=flash.launches_fma)
     failures = []
-    if out["launches"]["flash_attention"] != cfg.n_layers:
-        failures.append(f"flash_attention launched {out['launches']['flash_attention']} "
-                        f"times in a prefill of {cfg.n_layers} layers")
+    hold_routes("bf16 prefill", cfg.n_layers, 0)
     out.update(prefill_ms=t_prefill * 1e3, prefill_tokens_per_s=B * S / t_prefill,
                max_memory_allocated_prefill=(torch.cuda.max_memory_allocated()
                                              if device.type == "cuda" else None))
     if device.type == "cuda":
-        out["prefill_profile"] = _device_profile(lambda: T.prefill(params, cfg, tokens), 1,
-                                                 "flash_kernel")
+        prof = out["prefill_profile"] = _device_profile(
+            lambda: T.prefill(params, cfg, tokens), 1, "flash_tc_kernel", ("flash_kernel",))
+        if (prof["tag_launches_per_call"] != cfg.n_layers
+                or prof["other_launches_per_call"]["flash_kernel"] != 0):
+            failures.append(f"bf16 prefill profile: {prof['tag_launches_per_call']} launches "
+                            f"of flash_tc_kernel, {prof['other_launches_per_call']} of the "
+                            f"FMA kernel (want {cfg.n_layers} and 0)")
 
     sync()
     t0 = time.perf_counter()
@@ -1309,7 +1357,7 @@ def run_lm_serving(seed: int, device) -> dict:
     del f_logits, full
     if device.type == "cuda":  # the last step again: it rewrites the same k/v
         out["decode_profile"] = _device_profile(
-            lambda: T.decode_step(params, cfg, fed[-1], cache, pos), 4, "flash_kernel")
+            lambda: T.decode_step(params, cfg, fed[-1], cache, pos), 4, "flash_tc_kernel")
     del cache
 
     server = serve.DecodeServer(cfg, params, slots=4, max_len=24 + 16, device=device)
@@ -1327,8 +1375,10 @@ def run_lm_serving(seed: int, device) -> dict:
     # only, and a fault the bf16 gate cannot see stands out
     params = T.tree_map(lambda t: t.float(), params)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    reset_counters()
     got = T.prefill(params, cfg32, tokens)
     got = (got[0], *got[1])
+    hold_routes("f32 prefill", 0, cfg.n_layers)
     want = T.prefill(params, dataclasses.replace(plain, dtype=torch.float32), tokens)
     _hold_prefill(out, failures, "f32_prefill", got, (want[0], *want[1]), LM_F32_REL_L2_TOL)
     del got, want, params

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Plant faults in the flash_attention kernel and read what chip_smoke's
-checks of it see: do their limits separate a faulty kernel from a sound one?
+"""Plant faults in the flash_attention kernels and read what chip_smoke's
+checks of them see: do their limits separate a faulty kernel from a sound one?
 
     python3 flash_fault_check.py [--seed 0] [--variants sound,drop_tile,...]
 
-Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` as it is and
-three mutants of it, each a copy with one planted fault, compiled into a
-temporary directory (the checkout's sources are not touched):
+Builds the two attention kernels as they are (``src/repro_torch/kernels/
+csrc/flash_attention_sm90.cu``, the bf16 tensor-core kernel, and
+``flash_attention.cu``, the f32 FMA kernel) and four mutants, each a copy
+with one planted fault, compiled into a temporary directory (the checkout's
+sources are not touched):
 
 * ``drop_tile``  — skips one kv tile (the middle one) of every block whose
-  loop has at least 32 tiles: only the long rows (past 2048 at S = 4096,
-  causal) lose 1/32..1/64 of their keys;
+  loop is long: at S = 4096, causal, the rows past 1920 (tensor-core kernel,
+  tiles of 128, loops of at least 16 tiles) or past 2048 (FMA kernel, tiles
+  of 64, at least 32) lose 1/16..1/64 of their keys;
 * ``shift_mask`` — the causal mask also hides the diagonal;
-* ``zero_out``   — stores zeros.
+* ``zero_out``   — stores zeros;
+* ``drop_lo``    — the tensor-core kernel skips the P_lo.V product, so P is
+  rounded once to bf16 (the FMA kernel is left sound).
+
+The first three plant the fault in both kernels, so the bf16 and the f32
+checks each see it.
 
 For each variant it runs phase 2c's prefill-shape check
 (``chip_smoke.check_flash_prefill``: f32 and bf16 at (4,32,4,4096,128)
@@ -36,52 +44,61 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 DROP_AT = "  for (int j = 0; j < upper; ++j) {\n    const int k0 = j * BK;\n"
+TC, FMA = "flash_attention_sm90", "flash_attention"
+# mutant -> {library: (text of its source, the text that replaces it)}
 MUTANTS = {
-    "drop_tile": (DROP_AT, DROP_AT.replace(
-        "{\n", "{\n    if (upper >= 32 && j == upper / 2) continue;\n", 1)),
-    "shift_mask": ("(causal && qpos < kpos)", "(causal && qpos <= kpos)"),
-    "zero_out": ("from_f32<T>(acc[i][c] / l[i])", "from_f32<T>(0.0f)"),
+    "drop_tile": {
+        TC: ("int k_end = S;", "int k_end = (n_tiles >= 16 && j == n_tiles / 2) ? 0 : S;"),
+        FMA: (DROP_AT, DROP_AT.replace(
+            "{\n", "{\n    if (upper >= 32 && j == upper / 2) continue;\n", 1))},
+    "shift_mask": {TC: ("(causal && kpos > qpos)", "(causal && kpos >= qpos)"),
+                   FMA: ("(causal && qpos < kpos)", "(causal && qpos <= kpos)")},
+    "zero_out": {TC: ("__floats2bfloat162_rn(o0 / l[r], o1 / l[r])",
+                      "__floats2bfloat162_rn(0.0f, 0.0f)"),
+                 FMA: ("from_f32<T>(acc[i][c] / l[i])", "from_f32<T>(0.0f)")},
+    "drop_lo": {TC: ("wgmma_rs<D>(acc, p_lo[kk], desc_mn_major<D>(v_tile, kk * 16));",
+                     ";")},
 }
 LM_KEYS = ("prefill_logits_rel_l2", "prefill_k_cache_rel_l2", "prefill_v_cache_rel_l2",
            "decode_vs_full_prefill_rel_l2", "f32_prefill_logits_rel_l2",
            "f32_prefill_k_cache_rel_l2", "f32_prefill_v_cache_rel_l2")
 
 
-def build_mutants(names, out_dir: Path) -> dict[str, Path]:
-    """One nvcc per mutant, all at once; returns name -> shared library."""
+def build_mutants(names, out_dir: Path) -> dict[str, dict[str, Path]]:
+    """One nvcc per mutated source, all at once; returns name -> {library:
+    shared library}, with the sound library where a mutant leaves one be."""
     from repro_torch.kernels import _build
 
-    source = (_build.CSRC / "flash_attention.cu").read_text()
-    jobs = {}
+    jobs, libs = {}, {}
     for name in names:
-        old, new = MUTANTS[name]
-        if source.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to mutate is not in the source once")
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(source.replace(old, new))
-        lib = out_dir / f"lib{name}.so"
-        jobs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                                        str(cu)], stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True), lib)
-    libs = {}
-    for name, (proc, lib) in jobs.items():
+        libs[name] = {lib: _build._target(lib) for lib in (TC, FMA)}
+        for lib, (old, new) in MUTANTS[name].items():
+            source = (_build.CSRC / f"{lib}.cu").read_text()
+            if source.count(old) != 1:
+                raise RuntimeError(f"{name}: the text to mutate is not in {lib}.cu once")
+            cu = out_dir / f"{name}-{lib}.cu"
+            cu.write_text(source.replace(old, new))
+            so = out_dir / f"lib{name}-{lib}.so"
+            jobs[name, lib] = (subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    for (name, lib), (proc, so) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        libs[name] = lib
+            raise RuntimeError(f"nvcc {name} {lib} failed:\n{log}")
+        libs[name][lib] = so
     return libs
 
 
-def use_library(path: Path) -> None:
-    """Make ``flash_attention_cuda`` launch the kernel in ``path``."""
+def use_libraries(paths: dict[str, Path]) -> None:
+    """Make ``flash_attention_cuda`` launch the kernels in ``paths``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
 
-    lib = ctypes.CDLL(str(path))
-    for fn, (argtypes, restype) in ops._SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    _build._LIBS["flash_attention"] = lib
+    for name, fn, _ in ops.KERNELS.values():
+        lib = ctypes.CDLL(str(paths[name]))
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = ops.SIGNATURE
+        _build._LIBS[name] = lib
 
 
 def main(argv=None) -> int:
@@ -109,12 +126,12 @@ def main(argv=None) -> int:
     result = {"card": smi, "seed": args.seed, "variants": {}}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        _build.build_all(("flash_attention",))
-        libs = {"sound": _build._target("flash_attention"),
+        _build.build_all((TC, FMA))
+        libs = {"sound": {lib: _build._target(lib) for lib in (TC, FMA)},
                 **build_mutants([v for v in variants if v != "sound"], Path(tmp))}
         cs.log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
         for name in variants:
-            use_library(libs[name])
+            use_libraries(libs[name])
             row = {}
             gen = torch.Generator(device=device).manual_seed(args.seed)
             try:

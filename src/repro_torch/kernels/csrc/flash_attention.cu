@@ -1,14 +1,14 @@
 // Blockwise (FlashAttention-style) causal or non-causal GQA attention,
-// forward only, for f32 and bf16 inputs.
+// forward only, for f32 inputs on the FMA units.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py
-// `flash_attention` (`_flash_kernel`).  It computes what that kernel computes:
-// q [B,Hq,S,D] and k, v [B,Hkv,S,D]; q head h reads kv head h / (Hq/Hkv); q is
-// upcast to f32 and scaled by 1/sqrt(D) before QK^T; masked scores are set to
-// NEG_INF = -1e30; the online softmax keeps m, l and acc in f32 across kv
-// tiles; the output is acc / l cast to the input type.  A ragged S (not a
-// multiple of the tile) is masked here: kv rows past S score NEG_INF and q
-// rows past S are not stored.
+// `flash_attention` (`_flash_kernel`) for float32; bfloat16 inputs go to the
+// tensor-core kernel in flash_attention_sm90.cu.  It computes what that
+// kernel computes: q [B,Hq,S,D] and k, v [B,Hkv,S,D]; q head h reads kv head
+// h / (Hq/Hkv); q is scaled by 1/sqrt(D) before QK^T; masked scores are set
+// to NEG_INF = -1e30; the online softmax keeps m, l and acc in f32 across kv
+// tiles; the output is acc / l.  A ragged S (not a multiple of the tile) is
+// masked here: kv rows past S score NEG_INF and q rows past S are not stored.
 //
 // Design: one block of 256 threads per (q tile of 64 rows, q head, batch).
 // The TPU kernel walked its grid in order and kept a whole K/V stream of one
@@ -26,14 +26,12 @@
 // projections of a prefill are read and the output written in place, with no
 // transpose copies.
 //
-// What bounds it on an H100: at the serving prefill (B=4, Hq=32, Hkv=4,
-// S=4096, D=128, bf16, causal) the work is 4*B*Hq*S^2*D/2 = 5.5e11 FLOP, 0.56 ms
-// at the 989 TFLOP/s of bf16 tensor cores, against ~290 MB, 0.09 ms at
-// 3.35 TB/s: compute bounds it.  This kernel does the products on the f32
-// FMA units (67 TFLOP/s peak), which keeps the f32 inputs exact to 2e-5 and
-// bf16 within the reference's own tolerance; tensor cores (mma / wgmma on bf16
-// tiles), TMA and warp specialisation are the later step toward the bound.
-#include <cuda_bf16.h>
+// What bounds it on an H100: at the serving prefill's shape (B=4, Hq=32,
+// Hkv=4, S=4096, D=128, causal) the work is 4*B*Hq*S^2*D/2 = 5.5e11 FLOP,
+// 8.2 ms at the 67 TFLOP/s of the f32 FMA units, against ~600 MB, 0.18 ms at
+// 3.35 TB/s: compute bounds it.  The products stay on the FMA units because
+// f32 must match the reference to 2e-5, which TF32 tensor cores (about three
+// decimal digits) cannot.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,16 +46,11 @@ constexpr float NEG_INF = -1e30f;
 static_assert(BQ == BK, "the thread map gives 4 rows and 4 columns of a 64x64 tile");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 struct Strides {
   long long b, h, s;  // element strides; d is contiguous
@@ -243,34 +236,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                     int group, int S, int D, const long long* st, float scale, int causal,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, group, S, st, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, group, S, st, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, group, S, st, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, group, S, st, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (b, h, s) of
-// q, k, v and o in that order; d is contiguous in all four.  Returns the
-// launch's cudaGetLastError().
+// strides: 12 element strides, (b, h, s) of q, k, v and o in that order; d is
+// contiguous in all four.  f32 only.  Returns the launch's cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int Hq, int Hkv, int S, int D, int dtype,
+                                      int B, int Hq, int Hkv, int S, int D,
                                       const long long* strides, float scale, int causal,
                                       void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1) return cudaErrorInvalidValue;
   const int group = Hq / Hkv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, o, B, Hq, group, S, D, strides, scale, causal, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, Hq, group, S, D, strides, scale, causal, st);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return launch<float, 16>(q, k, v, o, B, Hq, group, S, strides, scale, causal, st);
+    case 32: return launch<float, 32>(q, k, v, o, B, Hq, group, S, strides, scale, causal, st);
+    case 64: return launch<float, 64>(q, k, v, o, B, Hq, group, S, strides, scale, causal, st);
+    case 128: return launch<float, 128>(q, k, v, o, B, Hq, group, S, strides, scale, causal, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

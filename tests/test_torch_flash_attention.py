@@ -86,18 +86,84 @@ def test_flash_attention_cuda_raises_on_cpu_tensors():
     assert ops.flash_attention_cuda.launches == before
 
 
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _script(name):
+    """A script at the repository's root, as a module (neither needs a card
+    to import)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def test_fault_check_mutates_the_kernel_source_once():
-    """``flash_fault_check.py`` plants each fault by replacing a piece of the
-    kernel's source; each piece must be there exactly once."""
-    root = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("flash_fault_check",
-                                                  root / "flash_fault_check.py")
-    ffc = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ffc)
-    source = (root / "src/repro_torch/kernels/csrc/flash_attention.cu").read_text()
-    assert set(ffc.MUTANTS) == {"drop_tile", "shift_mask", "zero_out"}
-    for old, new in ffc.MUTANTS.values():
-        assert source.count(old) == 1 and new != old
+    """``flash_fault_check.py`` plants each fault by replacing a piece of a
+    kernel's source: ``drop_tile``, ``shift_mask`` and ``zero_out`` in both
+    the tensor-core and the FMA kernel, ``drop_lo`` in the tensor-core
+    kernel; each piece must be there exactly once."""
+    ffc = _script("flash_fault_check")
+    both = {"flash_attention_sm90", "flash_attention"}
+    assert {name: set(m) for name, m in ffc.MUTANTS.items()} == {
+        "drop_tile": both, "shift_mask": both, "zero_out": both,
+        "drop_lo": {"flash_attention_sm90"}}
+    for mutant in ffc.MUTANTS.values():
+        for lib, (old, new) in mutant.items():
+            source = (ROOT / f"src/repro_torch/kernels/csrc/{lib}.cu").read_text()
+            assert source.count(old) == 1 and new != old
+
+
+def test_variants_edit_the_kernel_source_once():
+    """``flash_variants.py`` builds each variant by replacing pieces of the
+    tensor-core kernel's source; each piece must be there exactly once."""
+    fv = _script("flash_variants")
+    source = (ROOT / "src/repro_torch/kernels/csrc/flash_attention_sm90.cu").read_text()
+    assert set(fv.VARIANTS) == {"sound", "drop_lo", "stages2", "bk64_stages4", "trap_wait"}
+    for edits in fv.VARIANTS.values():
+        for old, new in edits:
+            assert source.count(old) == 1 and new != old
+
+
+def _split_p_attention(q, k, v, split: bool):
+    """The tensor-core kernel's numerics in plain PyTorch on the CPU: f32
+    scores scaled by 1/sqrt(D), causal mask, f32 softmax numerator p and row
+    sum l; P.V with p rounded to bf16 once (``split=False``) or as
+    P_hi = bf16(p) plus P_lo = bf16(p - P_hi), both products summed in f32
+    (``split=True``); the output acc / l rounded to bf16."""
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1).float()
+    vv = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (1.0 / D**0.5)
+    s = torch.where(torch.ones((S, S), dtype=torch.bool).tril(), s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p_hi = p.bfloat16().float()
+    acc = torch.einsum("bhqk,bhkd->bhqd", p_hi, vv)
+    if split:
+        acc = acc + torch.einsum("bhqk,bhkd->bhqd", (p - p_hi).bfloat16().float(), vv)
+    return (acc / p.sum(dim=-1, keepdim=True)).bfloat16()
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,seed", [(1, 4, 2, 512, 64, 0), (2, 2, 2, 256, 32, 1),
+                                               (1, 8, 2, 256, 128, 2)])
+def test_split_p_holds_the_prefill_gate_and_single_rounding_does_not(B, Hq, Hkv, S, D, seed):
+    """Why the tensor-core kernel splits P: against ``attention_ref`` under
+    chip_smoke's bf16 prefill gate (``PREFILL_TOL["bfloat16"]``: atol 1e-4,
+    rtol 2^-7, one bf16 ulp), P
+    split into two bf16 halves holds (worst |d| / (atol + rtol |want|) <= 1),
+    and P rounded once to bf16 does not."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32)).bfloat16()
+               for H in (Hq, Hkv, Hkv))
+    want = ops.attention_ref(q, k, v, causal=True).float()
+    atol, rtol = _script("chip_smoke").PREFILL_TOL["bfloat16"]
+
+    def worst(got):
+        return float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
+
+    assert worst(_split_p_attention(q, k, v, split=True)) <= 1.0
+    assert worst(_split_p_attention(q, k, v, split=False)) > 1.0
 
 
 def test_unknown_backend_raises():

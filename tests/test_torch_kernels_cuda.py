@@ -17,7 +17,9 @@ IEEE operations in the same order and the same ``log1pf``).
 ``flash_attention``: within 2e-5 (f32) and 2e-2 (bf16) of ``attention_ref``
 and of the kernel's plain blockwise version, the reference's own tolerances
 for its flash kernel (the online softmax sums in another order; a bf16
-output may round to the other side).
+output may round to the other side); the tensor-core kernel's tile-boundary
+cases also within one bf16 ulp (atol 1e-4, rtol 2^-7), chip_smoke's gate at
+the serving prefill.
 ``segment_sum`` / ``embedding_bag``: within rtol 1e-5 and atol 1e-5 * max|want|
 of the plain versions (both sum in f64 and round once to f32: the kernel
 each segment's rows in ascending row order, the plain version's CUDA
@@ -186,6 +188,57 @@ def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, S, D, causal, dtype, s
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# chip_smoke.PREFILL_TOL["bfloat16"]: one bf16 ulp (atol for values near 0)
+ONE_ULP_BF16 = (1e-4, 2**-7)
+
+
+def _flash_case(B, Hq, Hkv, S, D, dtype, strided, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(H):
+        x = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        return x.transpose(1, 2) if strided else x.transpose(1, 2).contiguous()
+
+    return make(Hq), make(Hkv), make(Hkv)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", [127, 128, 129, 257])
+def test_flash_attention_tc_kernel_at_tile_boundaries(S, D, causal, strided):
+    """The tensor-core kernel's 128-row q and kv tiles: S one short of,
+    equal to and one past a tile, and past two; group 8 (Hq=32, Hkv=4).
+    Held at the reference tolerance and at one bf16 ulp."""
+    _require_cuda()
+    q, k, v = _flash_case(1, 32, 4, S, D, torch.bfloat16, strided, S * 1000 + D)
+    before = fops.flash_attention_cuda.launches_tc
+    got = fops.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fops.flash_attention_cuda.launches_tc == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (1, 32, S, D)
+    want = fops.attention_ref(q, k, v, causal=causal).float()
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    atol, rtol = ONE_ULP_BF16
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_cuda_routes_by_dtype(dtype):
+    """bf16 launches the tensor-core kernel and never the FMA kernel; f32
+    the reverse."""
+    _require_cuda()
+    q, k, v = _flash_case(2, 8, 2, 256, 64, dtype, True, 7)
+    f = fops.flash_attention_cuda
+    before = (f.launches, f.launches_tc, f.launches_fma)
+    fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (f.launches, f.launches_tc, f.launches_fma) == (
+        before[0] + 1, before[1] + tc, before[2] + 1 - tc)
+
+
 def test_flash_attention_cuda_refuses_what_the_kernel_does_not_take():
     _require_cuda()
     q = torch.zeros((1, 4, 128, 64), device="cuda")
@@ -200,6 +253,14 @@ def test_flash_attention_cuda_refuses_what_the_kernel_does_not_take():
         fops.flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="last dim"):
         x = torch.zeros((1, 2, 64, 128), device="cuda").transpose(2, 3)
+        fops.flash_attention_cuda(x, x, x)
+    # TMA copies: a bf16 view off a 16-byte boundary, or stepping by a row
+    # that is no whole number of 16-byte units
+    with pytest.raises(ValueError, match="16-byte"):
+        x = torch.zeros((1, 2, 128, 72), device="cuda", dtype=torch.bfloat16)[..., 1:65]
+        fops.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        x = torch.zeros((1, 2, 128, 68), device="cuda", dtype=torch.bfloat16)[..., :64]
         fops.flash_attention_cuda(x, x, x)
 
 
