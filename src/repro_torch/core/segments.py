@@ -278,7 +278,7 @@ def chunk_order(keys, eids=None, weights=None) -> ChunkOrder:
     routes: the plain stable sort on the CPU, the CUDA kernel on a card.
     Pass ``eids``/``weights`` to also attach the pre-gathered view.
     """
-    # deferred import: kernels.chunksort imports this module for EMPTY
+    # deferred import: kernels.chunksort's plain version imports this module
     from ..kernels.chunksort.ops import sort_with_perm
 
     ks, perm = sort_with_perm(keys)

@@ -1,4 +1,4 @@
-"""Public op: padding + device dispatch for the chunk-order sort kernel.
+"""Public op: device dispatch for the chunk-order sort kernel.
 
 ``sort_with_perm(keys)`` takes an int32 [n] tensor and returns
 ``(ks int32 [n], perm int64 [n])``, the stable ascending sort.  A CPU tensor
@@ -8,21 +8,28 @@ runs the plain version; a CUDA tensor launches the kernel
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ...core.segments import EMPTY
 from .. import _build
 from .ref import sort_with_perm_ref
 
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # keys, P, n, ks_out, perm_out, scratch_k, scratch_i, stream
-    "chunksort_sort_pairs": ([_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
-                             ctypes.c_int),
+    # keys, n, ks_out, perm_out, scratch_k, scratch_i, stream
+    "chunksort_sort_pairs": ([_P, ctypes.c_int, _P, _P, _P, _P, _P], ctypes.c_int),
     "chunksort_block": ([], ctypes.c_int),
 }
+
+
+@functools.cache
+def _library():
+    """(the library, the largest power of two it sorts without scratch),
+    read once: the sort runs once per ingest step, on a host-bound path."""
+    lib = _build.load("chunksort", _SIGNATURES)
+    return lib, lib.chunksort_block()
 
 
 def sort_with_perm(keys):
@@ -34,12 +41,12 @@ def sort_with_perm(keys):
 
 
 def sort_with_perm_cuda(keys):
-    """The CUDA kernel.  Padding as in the reference op
-    (``repro/kernels/chunksort/ops.py``): the network wants a power-of-two
-    length, so the tail is filled with (EMPTY, idx >= n) pairs;
-    EMPTY is the maximal int32 and the pad indices exceed every real index,
-    so pads sort strictly after all real entries — real EMPTY keys included —
-    and the first n outputs are exact."""
+    """The CUDA kernel.  A chunk of up to 2048 keys is one launch of one
+    CTA; larger inputs sort as the padded power of two P.  The kernel pads
+    itself, as the reference op pads (``repro/kernels/chunksort/ops.py``):
+    slot i >= n holds (EMPTY, i), and EMPTY is the maximal int32 and i
+    exceeds every real index, so pads sort strictly after all real entries
+    -- real EMPTY keys included -- and the first n outputs are exact."""
     if keys.device.type != "cuda":
         raise ValueError(f"sort_with_perm_cuda needs a CUDA tensor, got {keys.device}")
     if keys.dtype != torch.int32 or keys.dim() != 1:
@@ -50,19 +57,15 @@ def sort_with_perm_cuda(keys):
     perm = torch.empty(n, dtype=torch.int64, device=keys.device)
     if n == 0:
         return ks, perm
+    lib, block = _library()
     P = 1 << max(0, n - 1).bit_length()
-    kp = (torch.cat([keys, torch.full((P - n,), EMPTY, dtype=torch.int32,
-                                      device=keys.device)])
-          if P > n else keys)
-    lib = _build.load("chunksort", _SIGNATURES)
-    big = P > lib.chunksort_block()
-    scratch_k = torch.empty(P if big else 0, dtype=torch.int32, device=keys.device)
-    scratch_i = torch.empty(P if big else 0, dtype=torch.int32, device=keys.device)
+    scratch = P if P > block else 0
+    scratch_k = torch.empty(scratch, dtype=torch.int32, device=keys.device)
+    scratch_i = torch.empty(scratch, dtype=torch.int32, device=keys.device)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.chunksort_sort_pairs(
-            kp.data_ptr(), P, n, ks.data_ptr(), perm.data_ptr(),
-            scratch_k.data_ptr(), scratch_i.data_ptr(), stream)
+        rc = lib.chunksort_sort_pairs(keys.data_ptr(), n, ks.data_ptr(), perm.data_ptr(),
+                                      scratch_k.data_ptr(), scratch_i.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"chunksort kernel launch failed: CUDA error {rc}")
     sort_with_perm_cuda.launches += 1

@@ -5,8 +5,8 @@ Plain functions over parameter trees (nested dicts of tensors, MLPs as
 lists of ``{"w", "b"}``), as ``models/transformer.py``.  The two-tower
 user tower pools its history through ``kernels.embedding_bag`` (an
 EmbeddingBag in ``mean`` mode: padding id 0 becomes -1, bag b holds row b's
-history), so on a card the pooling runs the ``segment_sum`` kernel; the
-reference computes the same function as ``masked_mean(embed_lookup(...))``.
+history), so on a card the pooling runs the gather-fused ``embedding_bag``
+kernel; the reference computes the same function as ``masked_mean(embed_lookup(...))``.
 DIN, BST and MIND pool with attention and capsule einsums, as the reference
 does.  The losses wait for the training path, and the tables are whole on
 one card (the reference's sharding specs have no counterpart).
@@ -286,15 +286,24 @@ def twotower_init(gen: torch.Generator, cfg: TwoTowerConfig) -> dict:
     }
 
 
+def _history_bags(hist):
+    """``hist`` [B, S] as EmbeddingBag arguments: ids [B*S] (0 -> -1
+    padding) and bag ids [B*S], row b's S positions in bag b, so the bag ids
+    are non-decreasing.  Device ops only: no value is read back."""
+    B, S = hist.shape
+    ids = torch.where(hist > 0, hist, -1).reshape(-1)
+    bags = torch.arange(B, device=hist.device)[:, None].expand(B, S).reshape(-1)
+    return ids, bags
+
+
 def history_pool(items, hist):
     """Mean of each row's non-padding history embeddings, f32 [B, d]:
     ``masked_mean(embed_lookup(items, hist), hist)`` as an EmbeddingBag
-    (id 0 -> -1 padding, bag b = row b), through the ``segment_sum`` kernel
-    on a card."""
-    B, S = hist.shape
-    ids = torch.where(hist > 0, hist, -1).reshape(-1)
-    bags = torch.arange(B, device=hist.device).repeat_interleave(S)
-    return eb_ops.embedding_bag(items, ids, bags, n_bags=B, mode="mean")
+    (id 0 -> -1 padding, bag b = row b).  On a card, one launch of the
+    gather-fused ``embedding_bag`` kernel and no host sync: the bag ids are
+    non-decreasing by construction, and the call says so."""
+    ids, bags = _history_bags(hist)
+    return eb_ops.embedding_bag_sorted(items, ids, bags, n_bags=hist.shape[0], mode="mean")
 
 
 def _normalize(u):

@@ -62,3 +62,27 @@ def test_cpu_tensor_takes_plain_version():
     assert ops.sort_with_perm_cuda.launches == before
     with pytest.raises(ValueError):
         ops.sort_with_perm_cuda(keys)  # the kernel wrapper refuses CPU tensors
+
+
+def test_kernel_variants_edit_the_sources_once():
+    """``kernel_variants.py`` builds each variant of the ``chunksort`` and
+    ``embedding_bag`` kernels by replacing pieces of their sources (or from
+    a source of its own); each piece must be there exactly once."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("kernel_variants", root / "kernel_variants.py")
+    kv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kv)
+    assert set(kv.VARIANTS) == {"rows1", "rows2", "rows4", "rows8", "rows16", "rows1_vec4",
+                                "registers", "registers_select", "smem_bitonic", "radix4",
+                                "radix6"}
+    assert set(kv.SORTS) | set(kv.BAGS) == set(kv.VARIANTS)
+    for name, (source, edits) in kv.VARIANTS.items():
+        if source is None:
+            assert "chunksort_sort_pairs" in edits, name
+            continue
+        text = (root / f"src/repro_torch/kernels/csrc/{source}.cu").read_text()
+        for old, new in edits:
+            assert text.count(old) == 1 and new != old, (name, old)

@@ -1,5 +1,5 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package ``repro``.
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the card
+scripts beside it import neither JAX nor the reference package ``repro``.
 
 Checked twice: by importing every module of the port in a fresh interpreter
 and inspecting ``sys.modules``, and by scanning the sources' import
@@ -51,7 +51,9 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                               ROOT / "flash_fault_check.py"],
+                                                               ROOT / "flash_fault_check.py",
+                                                               ROOT / "flash_variants.py",
+                                                               ROOT / "kernel_variants.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_neither_jax_nor_repro(path):
     for name in _imports(path):

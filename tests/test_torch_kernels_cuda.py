@@ -20,11 +20,11 @@ for its flash kernel (the online softmax sums in another order; a bf16
 output may round to the other side); the tensor-core kernel's tile-boundary
 cases also within one bf16 ulp (atol 1e-4, rtol 2^-7), chip_smoke's gate at
 the serving prefill.
-``segment_sum`` / ``embedding_bag``: within rtol 1e-5 and atol 1e-5 * max|want|
-of the plain versions (both sum in f64 and round once to f32: the kernel
-each segment's rows in ascending row order, the plain version's CUDA
-``index_add_`` with atomics in any order); integer-valued rows exactly; two
-launches on the same input bit-identical.
+``segment_sum`` / ``embedding_bag`` (the gather-fused kernel): within rtol
+1e-5 and atol 1e-5 * max|want| of the plain versions (both sum in f64 and
+round once to f32: the kernels each segment's rows in ascending row order,
+the plain version's CUDA ``index_add_`` with atomics in any order);
+integer-valued rows exactly; two launches on the same input bit-identical.
 """
 import numpy as np
 import pytest
@@ -60,6 +60,9 @@ def _sort_case(name, n):
         keys = rng.integers(-20, 50, n).astype(np.int32)
         keys[rng.random(n) < 0.3] = EMPTY
         return keys
+    if name == "extremes":  # the packed word's sign flip at both ends of int32
+        return rng.choice(np.array([-2**31, -2**31 + 1, -1, 0, 1, EMPTY - 1, EMPTY],
+                                   np.int32), n)
     return np.full(n, EMPTY, np.int32)  # all_empty
 
 
@@ -67,7 +70,10 @@ def _sort_case(name, n):
                                     ("random", 2048), ("zipf", 2048),
                                     ("random", 2049), ("random", 65536),
                                     ("ties", 2048), ("ties", 65536),
-                                    ("empty_mix", 2049), ("all_empty", 4097)])
+                                    ("empty_mix", 2049), ("all_empty", 4097),
+                                    ("extremes", 2048), ("extremes", 3000)]
+                         + [(name, n) for name in ("all_empty", "ties")
+                            for n in (1, 2, 2047, 2048, 2049, 4097)])
 def test_chunksort_kernel_matches_plain(name, n):
     _require_cuda()
     keys = torch.from_numpy(_sort_case(name, n)).cuda()
@@ -78,6 +84,17 @@ def test_chunksort_kernel_matches_plain(name, n):
     ks_p, perm_p = sops.sort_with_perm_ref(keys)
     assert torch.equal(ks, ks_p)
     assert torch.equal(perm, perm_p)
+
+
+@pytest.mark.parametrize("n", [8, 2000, 5000])
+def test_chunksort_kernel_reads_a_view_off_a_16_byte_boundary(n):
+    """The in-register path loads eight keys at once where it can; a view
+    that starts one int32 in takes the scalar loads."""
+    _require_cuda()
+    keys = torch.from_numpy(_sort_case("zipf", n + 1)).cuda()[1:]
+    got = sops.sort_with_perm_cuda(keys)
+    want = sops.sort_with_perm_ref(keys)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _agg_case(C, L, seed, empty_tail):
@@ -323,13 +340,99 @@ def test_embedding_bag_kernel_matches_plain(mode, weighted):
     segs = torch.arange(B, device="cuda").repeat_interleave(bag)
     psw = (torch.from_numpy(rng.random(B * bag).astype(np.float32)).cuda() + 0.5
            if weighted else None)
-    before = eops.segment_sum_cuda.launches
+    before = eops.embedding_bag_cuda.launches, eops.segment_sum_cuda.launches
     got = eops.embedding_bag(table, ids, segs, n_bags=B, mode=mode, per_sample_weights=psw)
     torch.cuda.synchronize()
-    assert eops.segment_sum_cuda.launches == before + (2 if mode == "mean" else 1)
+    # one fused launch, whatever the mode, and no segment_sum
+    assert (eops.embedding_bag_cuda.launches, eops.segment_sum_cuda.launches) == \
+        (before[0] + 1, before[1])
     assert not got[0].any()
     _assert_sum_close(got, eops.embedding_bag_ref(table, ids, segs, n_bags=B, mode=mode,
                                                   per_sample_weights=psw))
+
+
+def _bag_case(D, dtype, order, seed):
+    """64 bags of 0..40 ids over a 1000-row table: 10% padding, a bag of
+    padding only, empty bags, ids past the table, and bag ids out of range
+    at both ends; ``order`` "sorted" or "unsorted" (a permutation)."""
+    rng = np.random.default_rng(seed)
+    V, B = 1000, 64
+    lengths = rng.integers(0, 41, B)
+    lengths[[3, 17]] = 0
+    bags = np.concatenate([np.full(7, -1), np.repeat(np.arange(B), lengths), np.full(5, B)])
+    ids = rng.integers(0, V + 50, len(bags))
+    ids[rng.random(len(bags)) < 0.1] = -1
+    ids[np.flatnonzero(bags == 5)] = -1
+    if order == "unsorted":
+        p = rng.permutation(len(bags))
+        bags, ids = bags[p], ids[p]
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32)).to(dtype).cuda()
+    w = torch.from_numpy((rng.random(len(bags)) + 0.5).astype(np.float32)).cuda()
+    cuda = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return table, cuda(ids), cuda(bags.astype(np.int32)), w, B
+
+
+@pytest.mark.parametrize("order", ["sorted_promised", "sorted", "unsorted"])
+@pytest.mark.parametrize("mode,weights", [("sum", None), ("mean", None), ("sum", "table"),
+                                          ("mean", "f32")])
+@pytest.mark.parametrize("D", [3, 8, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_fused_embedding_bag_kernel_matches_plain(dtype, D, mode, weights, order):
+    """The gather-fused kernel against ``embedding_bag_ref``: every table
+    dtype, ragged and vector D, sum / mean / weighted (weights of the table's
+    dtype round each product to it, f32 weights do not), bags sorted (with
+    and without the caller's promise) and not; two launches bit-identical."""
+    _require_cuda()
+    table, ids, bags, w, B = _bag_case(D, dtype, "unsorted" if order == "unsorted"
+                                       else "sorted", D + len(order))
+    w = None if weights is None else w.to(dtype) if weights == "table" else w
+    kw = dict(n_bags=B, mode=mode, per_sample_weights=w,
+              sorted_bags=order == "sorted_promised")
+    before = eops.embedding_bag_cuda.launches
+    got = eops.embedding_bag_cuda(table, ids, bags, **kw)
+    again = eops.embedding_bag_cuda(table, ids, bags, **kw)
+    torch.cuda.synchronize()
+    assert eops.embedding_bag_cuda.launches == before + 2
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, D)
+    assert torch.equal(got, again), "two launches differ"
+    assert not got[[3, 5, 17]].any(), "empty and padding-only bags"
+    _assert_sum_close(got, eops.embedding_bag_ref(table, ids, bags, n_bags=B, mode=mode,
+                                                  per_sample_weights=w))
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_fused_embedding_bag_kernel_exact_on_integer_rows(mode):
+    _require_cuda()
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.integers(-50, 51, (3000, 256)).astype(np.float32)).cuda()
+    ids = rng.integers(-1, 3000, 40_000)
+    bags = np.sort(rng.integers(0, 700, 40_000))
+    ids, bags = torch.from_numpy(ids).cuda(), torch.from_numpy(bags).cuda()
+    for promised in (True, False):
+        got = eops.embedding_bag_cuda(table, ids, bags, n_bags=700, mode=mode,
+                                      sorted_bags=promised)
+        assert torch.equal(got, eops.embedding_bag_ref(table, ids, bags, n_bags=700,
+                                                       mode=mode))
+
+
+def test_embedding_bag_cuda_refuses_what_the_kernel_does_not_take():
+    _require_cuda()
+    ids = torch.zeros(8, dtype=torch.int32, device="cuda")
+    table = torch.zeros((4, 16), device="cuda")
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        eops.embedding_bag_cuda(table.double(), ids, ids, n_bags=2)
+    with pytest.raises(ValueError, match="unit column stride"):
+        eops.embedding_bag_cuda(table.t(), ids, ids, n_bags=2)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        eops.embedding_bag_cuda(table, ids.float(), ids, n_bags=2)
+    with pytest.raises(ValueError, match=r"\[N\]"):
+        eops.embedding_bag_cuda(table, ids[:7], ids, n_bags=2)
+    with pytest.raises(ValueError, match="per_sample_weights"):
+        eops.embedding_bag_cuda(table, ids, ids, n_bags=2,
+                                per_sample_weights=torch.ones(8, device="cuda").double())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        eops.embedding_bag_cuda(table, ids.cpu(), ids, n_bags=2)
 
 
 def test_segment_sum_cuda_refuses_what_the_kernel_does_not_take():
