@@ -9,13 +9,18 @@ Phases, each of which fails the run if it fails:
              kernels/csrc`` with nvcc (one process per source, in parallel).
 2. kernels — hold each kernel against its plain PyTorch version on the card
              (chunksort: exact on ragged sizes, ties, EMPTY keys;
-             capscore_agg: entered/kb_min/min_score exact, sums rtol 1e-5 on
-             key-sorted Zipf chunks, C=2048, L=4 and L=8; capscore_multi and
-             capscore: every output bit-identical on ragged N, L = 1, 4, 8,
-             EMPTY keys, non-unit weights and taus mixing inf, tau*l > 1 and
-             tau*l < 1) and time kernel, plain version and, for chunksort,
-             ``torch.sort(stable=True)`` (per call, and the device time of
-             the kernel and of all the kernels one torch.sort launches).
+             capscore_agg: entered/kb_min/min_score exact, sums rtol 1e-5,
+             two launches bit-identical, on key-sorted Zipf chunks, C=2048,
+             L=4 and L=8, and C in 1..5000 with a key straddling the 2048
+             tile, one key filling the chunk, an EMPTY tail and all EMPTY, L
+             = 1, 4, 8; capscore_multi and capscore: every output
+             bit-identical on ragged N up to 2^20+3, L = 1, 4, 8, views off a
+             16-byte boundary, EMPTY keys, non-unit weights and taus mixing
+             inf, tau*l > 1 and tau*l < 1) and time kernel, plain version
+             and, for chunksort, ``torch.sort(stable=True)`` (per call, and
+             the device time of the kernel and of all the kernels one
+             torch.sort launches); capscore_agg at the main path's chunk and
+             on one key, capscore_multi at pass I's 2^20 and at 2048.
 3. main    — ``StreamStatsService(StatsConfig())`` with the service defaults
              (k=4096, ls=(1,16,256,4096), chunk=2048) observes 2^24 Zipf(1.2)
              keys over 2^22 ids in batches of 2^20, then answers one
@@ -38,9 +43,10 @@ Phases, each of which fails the run if it fails:
              whose states rank 0 merges exactly (``merge_many``), reconciles
              over all four shards and queries: the merged summaries equal
              the program's, both paths' pass-II weights equal the exact
-             counts, every exact estimate lies within 5 stderr, and
-             ``capscore_multi`` / ``capscore`` launched once per chunk step
-             per rank.
+             counts, every exact estimate lies within 5 stderr,
+             ``capscore_multi`` launched once per 2^20 elements of a rank's
+             shard (pass I scores in batches) and ``capscore`` once per
+             chunk step per rank.
 2c. flash_attention — the attention kernels against ``attention_ref`` on
              the card (f32 math; bf16 runs the tensor-core kernel, f32 the
              FMA kernel): (B,Hq,Hkv,S,D) = (2,4,4,256,64), (2,4,2,256,64),
@@ -281,20 +287,40 @@ def check_chunksort(device, rng) -> dict:
             "device_us": dev_us, "library_device_us": lib_dev_us}
 
 
-def _agg_inputs(device, rng, C: int, L: int):
+# capscore_agg's edge cases: (kind, C); kinds as in _agg_inputs
+AGG_EDGE_CASES = ([(kind, C) for kind in ("zipf", "straddle") for C in (1, 37, 2048, 5000)]
+                  + [(kind, C) for kind in ("one_key", "empty_tail", "all_empty")
+                     for C in (37, 2048, 5000)])
+
+
+def _agg_inputs(device, rng, C: int, L: int, kind: str = "zipf"):
+    """A key-sorted chunk (the ChunkOrder view) and L lanes: Zipf(1.2) keys
+    over 2^22 ids (the main path's), or a key of 200 elements straddling the
+    2048-element tile boundary (from 1990), one key filling the chunk, an
+    EMPTY third at the end, all EMPTY."""
     import numpy as np
     import torch
     from repro_torch.core.segments import chunk_order
     from repro_torch.data.streams import zipf_keys
 
     keys = zipf_keys(rng, C, 1.2, 1 << 22).astype(np.int32)
+    if kind == "straddle" and C > 2190:
+        keys[:1990] = np.arange(1990)
+        keys[1990:2190] = 1 << 22
+        keys[2190:] += (1 << 22) + 1
+    elif kind == "one_key":
+        keys[:] = 42
+    elif kind == "empty_tail":
+        keys[-max(1, C // 3):] = EMPTY
+    elif kind == "all_empty":
+        keys[:] = EMPTY
     eids = rng.integers(0, 2**31 - 1, C).astype(np.int32)
     ws = np.ones(C, np.float32)
     ws[: C // 4] = rng.random(C // 4).astype(np.float32) * 3 + 0.05
     order = chunk_order(*(torch.from_numpy(a).to(device) for a in (keys, eids, ws)))
-    ls = np.array([1.0, 16.0, 256.0, 4096.0, 3.0, 64.0, 1024.0, 8.0][:L], np.float32)
+    ls = np.resize(np.array([1.0, 16.0, 256.0, 4096.0, 3.0, 64.0, 1024.0, 8.0], np.float32), L)
     # tau = inf, tau*l > 1 and tau*l < 1 lanes
-    taus = np.array([np.inf, 0.5, 1e-3, 2e-3, 0.9, np.inf, 5e-4, 0.2][:L], np.float32)
+    taus = np.resize(np.array([np.inf, 0.5, 1e-3, 2e-3, 0.9, np.inf, 5e-4, 0.2], np.float32), L)
     return (order.ks, order.eids, order.ws, order.seg,
             torch.from_numpy(ls).to(device), torch.from_numpy(taus).to(device), SALT)
 
@@ -305,110 +331,165 @@ def _max_abs_err(got, want) -> float:
     err = 0.0
     for g, w in zip(got, want):
         g, w = g.double(), w.double()
-        same = g == w  # inf == inf
+        same = (g == w) | (g.isnan() & w.isnan())  # inf == inf, NaN at NaN
         d = torch.where(same, torch.zeros_like(g), (g - w).abs())
         err = max(err, float(d.max()))
     return err
 
 
-def check_capscore_agg(device, rng) -> dict:
+def _same_bits(got, want) -> bool:
+    """Equal dtypes and values, NaN where the other has NaN: Delta is inf /
+    inf = NaN in a tau = inf lane for the element whose uniform rounds to
+    1.0 (h >> 8 = 2^24 - 1, about one in 2^24), in both versions."""
     import torch
+
+    if got.dtype != want.dtype:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    nan = got.isnan()
+    return torch.equal(nan, want.isnan()) and torch.equal(got[~nan], want[~nan])
+
+
+def _hold_agg(ops, args, what: str) -> float:
+    """The kernel twice and the plain version on one chunk: entered, kb_min,
+    min_score exact, the sums within rtol 1e-5, both launches the same
+    bits.  Returns the largest absolute difference."""
+    import torch
+
+    got = ops.capscore_agg_cuda(*args)
+    again = ops.capscore_agg_cuda(*args)
+    want = ops.capscore_agg_ref(*args)
+    torch.cuda.synchronize()
+    for i, name in ((1, "entered"), (3, "kb_min"), (4, "min_score")):
+        if not torch.equal(got[i], want[i]):
+            raise AssertionError(f"capscore_agg {name} differs from the plain version ({what})")
+    for i, name in ((0, "w_total"), (2, "contrib")):
+        if not torch.allclose(got[i], want[i], rtol=1e-5, atol=0):
+            raise AssertionError(f"capscore_agg {name} beyond rtol 1e-5 ({what})")
+    for g, a in zip(got, again):
+        if not torch.equal(g, a):
+            raise AssertionError(f"capscore_agg: two launches differ ({what})")
+    return _max_abs_err(got, want)
+
+
+def check_capscore_agg(device, rng) -> tuple[dict, dict]:
     from repro_torch.kernels.capscore import ops
 
-    err = 0.0
+    err, n_cases = 0.0, 0
     for L in (4, 8):
         for rep in range(3):
-            args = _agg_inputs(device, rng, 2048, L)
-            got = ops.capscore_agg_cuda(*args)
-            want = ops.capscore_agg_ref(*args)
-            torch.cuda.synchronize()
-            for i, name in ((1, "entered"), (3, "kb_min"), (4, "min_score")):
-                if not torch.equal(got[i], want[i]):
-                    raise AssertionError(f"capscore_agg {name} differs from the plain "
-                                         f"version (L={L}, rep {rep})")
-            for i, name in ((0, "w_total"), (2, "contrib")):
-                if not torch.allclose(got[i], want[i], rtol=1e-5, atol=0):
-                    raise AssertionError(f"capscore_agg {name} beyond rtol 1e-5 (L={L})")
-            err = max(err, _max_abs_err(got, want))
-    log(f"capscore_agg: entered/kb_min/min_score exact, sums within rtol 1e-5 "
-        f"(C=2048, L=4 and 8); max abs err {err:.3e}")
+            err = max(err, _hold_agg(ops, _agg_inputs(device, rng, 2048, L),
+                                     f"zipf C=2048 L={L} rep {rep}"))
+            n_cases += 1
+    for kind, C in AGG_EDGE_CASES:
+        for L in (1, 4, 8):
+            err = max(err, _hold_agg(ops, _agg_inputs(device, rng, C, L, kind),
+                                     f"{kind} C={C} L={L}"))
+            n_cases += 1
+    log(f"capscore_agg: entered/kb_min/min_score exact, sums within rtol 1e-5, two "
+        f"launches bit-identical on {n_cases} chunks (C 1..5000, L 1/4/8, tile-straddling "
+        f"key, one key, EMPTY tail, all EMPTY); max abs err {err:.3e}")
 
     args = _agg_inputs(device, rng, 2048, 4)  # the main path's shape
     C, L = args[0].shape[0], args[4].shape[0]
     ms = cuda_ms(lambda: ops.capscore_agg_cuda(*args))
     plain = cuda_ms(lambda: ops.capscore_agg_ref(*args))
+    dev_us = _device_profile(lambda: ops.capscore_agg_cuda(*args), 50,
+                             "capscore_agg_kernel")["kernel_device_us_per_launch"]
+    # the old one-warp-per-key design's worst case: one key in all 2048
+    one = _agg_inputs(device, rng, 2048, 4, "one_key")
+    one_us = _device_profile(lambda: ops.capscore_agg_cuda(*one), 50,
+                             "capscore_agg_kernel")["kernel_device_us_per_launch"]
     # bytes: ks/eids/ws/seg once (16 B/element), ls/taus, and the outputs
     # (w_total f32, then entered u8 + three f32 columns per lane);
     # operations: ~40 integer ops for the element hash, ~30 for log1p and
     # the divisions, ~10 per lane
     n_bytes = 16 * C + 8 * L + 4 * C + 13 * L * C
     b, by = bound_ms(n_bytes, C * (70 + 10 * L))
-    log(f"capscore_agg C={C} L={L}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b:.6f} ms ({by})")
+    log(f"capscore_agg C={C} L={L}: kernel {ms:.4f} ms per call, {dev_us} us device per "
+        f"launch ({one_us} us on one key), plain {plain:.4f} ms, bound {b:.6f} ms ({by}), "
+        f"{100 * b * 1e3 / dev_us:.2f}% of it")
     return {"name": "capscore_agg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/capscore_agg.cu",
             "replaces": "src/repro/kernels/capscore/capscore.py:466",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None}
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "device_us": dev_us, "one_key_device_us": one_us}, dev_us
 
 
-def _score_inputs(device, rng, N: int, L: int):
+def _score_inputs(device, rng, N: int, L: int, offset: int = 0):
     """Unsorted elements (5% EMPTY keys, a quarter non-unit weights) and
-    lanes mixing tau = inf, tau*l > 1 and tau*l < 1."""
+    lanes mixing tau = inf, tau*l > 1 and tau*l < 1; ``offset`` > 0 gives
+    views that many elements into their allocations."""
     import numpy as np
     import torch
     from repro_torch.data.streams import zipf_keys
 
-    keys = zipf_keys(rng, N, 1.2, 1 << 22).astype(np.int32)
-    keys[rng.random(N) < 0.05] = EMPTY
-    eids = rng.integers(-2**31, 2**31 - 1, N).astype(np.int32)
-    ws = np.ones(N, np.float32)
-    ws[: N // 4] = rng.random(N // 4).astype(np.float32) * 3 + 0.05
+    M = N + offset
+    keys = zipf_keys(rng, M, 1.2, 1 << 22).astype(np.int32)
+    keys[rng.random(M) < 0.05] = EMPTY
+    eids = rng.integers(-2**31, 2**31 - 1, M).astype(np.int32)
+    ws = np.ones(M, np.float32)
+    ws[: M // 4] = rng.random(M // 4).astype(np.float32) * 3 + 0.05
     ls = np.resize(np.array([1.0, 16.0, 256.0, 4096.0, 3.3, 64.0, 1024.0, 0.7],
                             np.float32), L)
     taus = np.resize(np.array([np.inf, 0.5, 1e-3, 2e-3, 0.9, np.inf, 5e-4, 0.2],
                               np.float32), L)
-    return ([torch.from_numpy(a).to(device) for a in (keys, eids, ws)],
+    return ([torch.from_numpy(a).to(device)[offset:] for a in (keys, eids, ws)],
             torch.from_numpy(ls).to(device), torch.from_numpy(taus).to(device))
 
 
 def check_capscore_multi(device, rng) -> dict:
     import torch
+    from repro_torch.core.distributed import SCORE_BATCH  # pass I's launch
     from repro_torch.kernels.capscore import ops
 
-    n_cases, err = 0, 0.0
-    for N in (1, 7, 2047, 2048, 2049, 65536):
-        for L in (1, 4, 8):
-            elems, ls, taus = _score_inputs(device, rng, N, L)
-            got = ops.capscore_multi_cuda(*elems, ls, taus, SALT)
-            want = ops.capscore_multi_ref(*elems, ls, taus, SALT)
-            torch.cuda.synchronize()
-            for g, w, name in zip(got, want, ("score", "delta", "entry", "kb")):
-                if g.dtype != w.dtype or not torch.equal(g, w):
-                    raise AssertionError(f"capscore_multi {name} differs from the plain "
-                                         f"version (N={N}, L={L})")
-            err = max(err, _max_abs_err(got, want))
-            n_cases += 1
+    cases = [(N, L, 0) for N in (1, 7, 2047, 2048, 2049, 65536) for L in (1, 4, 8)]
+    cases += [(SCORE_BATCH, 4, 0)]  # phase 6's pass-I launch: every store 16 bytes
+    cases += [(SCORE_BATCH + 3, L, 0) for L in (1, 4)]
+    cases += [(N, 4, 1) for N in (2048, SCORE_BATCH + 3)]  # off 16 bytes
+    err = 0.0
+    for N, L, offset in cases:
+        elems, ls, taus = _score_inputs(device, rng, N, L, offset)
+        got = ops.capscore_multi_cuda(*elems, ls, taus, SALT)
+        want = ops.capscore_multi_ref(*elems, ls, taus, SALT)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("score", "delta", "entry", "kb")):
+            if not _same_bits(g, w):
+                raise AssertionError(f"capscore_multi {name} differs from the plain "
+                                     f"version (N={N}, L={L}, offset {offset})")
+        err = max(err, _max_abs_err(got, want))
     log(f"capscore_multi: every output bit-identical to the plain version on "
-        f"{n_cases} cases (N in 1..65536, L in 1, 4, 8)")
-    # the distributed pass I's shape: one chunk of the default config
-    elems, ls, taus = _score_inputs(device, rng, 2048, 4)
-    N, L = 2048, 4
-    ms = cuda_ms(lambda: ops.capscore_multi_cuda(*elems, ls, taus, SALT))
-    plain = cuda_ms(lambda: ops.capscore_multi_ref(*elems, ls, taus, SALT))
-    dev_us = _device_profile(lambda: ops.capscore_multi_cuda(*elems, ls, taus, SALT), 20,
-                             "capscore_multi_kernel")["kernel_device_us_per_launch"]
-    # bytes: keys/eids/weights once (12 B/element), ls/taus, and four [L, N]
-    # outputs of 4 B; operations: ~40 integer ops per element hash (two),
-    # ~30 for log1p and the divisions, ~10 per lane
-    b, by = bound_ms(12 * N + 8 * L + 16 * L * N, N * (110 + 10 * L))
-    log(f"capscore_multi N={N} L={L}: kernel {ms:.4f} ms ({dev_us} us device per launch), "
-        f"plain {plain:.4f} ms, bound {b:.6f} ms ({by})")
+        f"{len(cases)} cases (N in 1..2^20+3 with pass I's 2^20, L in 1, 4, 8, views "
+        f"off 16 bytes)")
+    # phase 6's pass-I launch (2^20 elements) and one 2048-element chunk
+    rows = {}
+    for N in (SCORE_BATCH, 2048):
+        L = 4
+        elems, ls, taus = _score_inputs(device, rng, N, L)
+        call = lambda: ops.capscore_multi_cuda(*elems, ls, taus, SALT)  # noqa: E731
+        ms = cuda_ms(call, *((50, 5) if N > 65536 else (200, 20)))
+        plain = cuda_ms(lambda: ops.capscore_multi_ref(*elems, ls, taus, SALT),
+                        *((20, 3) if N > 65536 else (200, 20)))
+        dev_us = _device_profile(call, 20, "capscore_multi_kernel")["kernel_device_us_per_launch"]
+        # bytes: keys/eids/weights once (12 B/element), ls/taus, and four [L, N]
+        # outputs of 4 B; operations: ~40 integer ops per element hash (two),
+        # ~30 for log1p and the divisions, ~10 per lane
+        b, by = bound_ms(12 * N + 8 * L + 16 * L * N, N * (110 + 10 * L))
+        rows[N] = {"N": N, "L": L, "ms": ms, "plain_ms": plain, "device_us": dev_us,
+                   "bound_ms": b, "bound_by": by, "bound_share": b * 1e3 / dev_us}
+        log(f"capscore_multi N={N} L={L}: kernel {ms:.4f} ms per call ({dev_us} us device "
+            f"per launch), plain {plain:.4f} ms, bound {b:.6f} ms ({by}), "
+            f"{100 * b * 1e3 / dev_us:.2f}% of it")
+    main = rows[SCORE_BATCH]
     return {"name": "capscore_multi", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/capscore.cu",
             "replaces": "src/repro/kernels/capscore/capscore.py:270",
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None}, dev_us
+            "launches": None, "max_abs_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "device_us": main["device_us"],
+            "at_one_chunk": rows[2048]}, main["device_us"]
 
 
 def check_capscore(device, rng) -> dict:
@@ -424,7 +505,7 @@ def check_capscore(device, rng) -> dict:
             want = ops.capscore_ref(*elems, l, tau, SALT)
             torch.cuda.synchronize()
             for g, w, name in zip(got, want, ("score", "delta", "entry")):
-                if g.dtype != w.dtype or not torch.equal(g, w):
+                if not _same_bits(g, w):
                     raise AssertionError(f"capscore {name} differs from the plain "
                                          f"version (N={N}, l={l}, tau={tau})")
             err = max(err, _max_abs_err(got, want))
@@ -1302,6 +1383,7 @@ def _merge_and_check(gathered, prog, keys, cfg, batch) -> dict:
 
     import numpy as np
     import torch
+    from repro_torch.core import distributed as DZ
     from repro_torch.core import freqfns, segments
     from repro_torch.stats.service import StreamStatsService
 
@@ -1310,12 +1392,15 @@ def _merge_and_check(gathered, prog, keys, cfg, batch) -> dict:
     for o in ranks:
         if o["digest"] != ranks[0]["digest"]:
             raise AssertionError(f"rank {o['rank']}'s program result differs from rank 0's")
+        # pass I scores the shard in launches of whole chunks, SCORE_BATCH
+        # elements at most, as pass1_local_multi does
+        score_launches = -(-o["steps"] // max(1, DZ.SCORE_BATCH // cfg.chunk))
         for merge in ("tree", "allgather"):
             la = o[f"launches_{merge}"]
-            if la["capscore_multi"] != o["steps"]:
+            if la["capscore_multi"] != score_launches:
                 raise AssertionError(f"rank {o['rank']} merge={merge}: capscore_multi "
-                                     f"launched {la['capscore_multi']} times for "
-                                     f"{o['steps']} chunk steps")
+                                     f"launched {la['capscore_multi']} times for a shard "
+                                     f"of {m} elements, not {score_launches}")
         if o["launches_single"]["capscore"] != o["steps"]:
             raise AssertionError(f"rank {o['rank']}: capscore launched "
                                  f"{o['launches_single']['capscore']} times for "
@@ -1953,10 +2038,9 @@ def main(argv=None) -> int:
         phase_s[name] = time.perf_counter() - t
         return out
 
-    kernels = [timed("2 chunksort", check_chunksort, device, rng),
-               timed("2 capscore_agg", check_capscore_agg, device, rng)]
+    kernels = [timed("2 chunksort", check_chunksort, device, rng)]
     device_us = {}
-    for check in (check_capscore_multi, check_capscore):
+    for check in (check_capscore_agg, check_capscore_multi, check_capscore):
         entry, device_us[entry["name"]] = timed(f"2 {check.__name__[6:]}", check, device, rng)
         kernels.append(entry)
     flash, flash_prefill = timed("2c", check_flash_attention, device, args.seed)

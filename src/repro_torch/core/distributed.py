@@ -16,8 +16,8 @@ across ranks:
 and pass II (exact weights of the sampled keys) is a per-rank scatter-add
 followed by an ``all_reduce`` — the paper's two-pass distributed scheme.
 ``make_distributed_two_pass_multi`` runs the whole l-grid in one program:
-each chunk is scored once by the ``capscore_multi`` kernel and every lane
-reuses the element hashes.
+the ``capscore_multi`` kernel scores each element once, in launches of up
+to 2^20 elements, and every lane reuses the element hashes.
 
 Transport: NCCL refuses two ranks on one GPU, so the collectives also run
 on a gloo group, which moves the [L, k+1] summaries and weights through
@@ -342,13 +342,22 @@ def pass2_shard(keys_shard, weights_shard, sampled_sorted, *, group=None):
                           group)
 
 
+# elements scored per ``capscore_multi`` launch in pass I: the kernel is
+# bandwidth-bound at this size, and its [L, SCORE_BATCH] x 4 outputs stay
+# bounded (64 MB at L = 4)
+SCORE_BATCH = 1 << 20
+
+
 def pass1_local_multi(keys_shard, weights_shard, *, ls, salt, k, chunk,
                       group=None):
     """Per-rank pass I for every l of a grid, before any merge: the
     per-lane bottom-(k+1) summaries ([L, k+1] keys, seeds) of this rank's
-    shard.  ``ls`` is an f32 [L] tensor on the shard's device.  Each chunk
-    is scored once by ``capscore_multi`` (the CUDA kernel on a card): the
-    element hashes are computed once and every lane reuses them."""
+    shard.  ``ls`` is an f32 [L] tensor on the shard's device.  The shard is
+    scored by ``capscore_multi`` (the CUDA kernel on a card) in launches of
+    whole chunks, at most ``SCORE_BATCH`` elements each: the element hashes
+    are computed once and every lane reuses them.  Scores are elementwise,
+    so each chunk's slice of a launch is the score of that chunk alone, and
+    the chunk loop folds it into the carry."""
     n_chunks, eids = _shard_layout(keys_shard, chunk, group)
     dev = keys_shard.device
     L, cap = ls.shape[0], k + 1
@@ -356,11 +365,14 @@ def pass1_local_multi(keys_shard, weights_shard, *, ls, salt, k, chunk,
     taus = torch.full((L,), INF, dtype=torch.float32, device=dev)
     carry = (torch.full((L, cap), EMPTY, dtype=torch.int32, device=dev),
              torch.full((L, cap), INF, dtype=torch.float32, device=dev))
-    for c in range(n_chunks):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        ck = keys_shard[sl]
-        score, _, _, _ = capscore_multi(ck, eids[sl], weights_shard[sl], ls, taus, salt)
-        carry = VZ.pass1_step_multi(carry, ck, score, cap=cap)
+    per_launch = max(1, SCORE_BATCH // chunk)
+    for c0 in range(0, n_chunks, per_launch):
+        lo, hi = c0 * chunk, min(n_chunks, c0 + per_launch) * chunk
+        score, _, _, _ = capscore_multi(keys_shard[lo:hi], eids[lo:hi],
+                                        weights_shard[lo:hi], ls, taus, salt)
+        for a in range(0, hi - lo, chunk):
+            carry = VZ.pass1_step_multi(carry, keys_shard[lo + a:lo + a + chunk],
+                                        score[:, a:a + chunk], cap=cap)
     return carry
 
 

@@ -12,7 +12,15 @@
 with the return types of ``repro/kernels/capscore/ops.py`` (``entry`` is
 int32).  A CPU tensor runs the plain version; a CUDA tensor launches the
 kernel (``kernels/csrc/capscore.cu``, ``capscore_agg.cu``) or raises.  The
-TPU tile registry has no counterpart: the kernels take any length >= 1.
+TPU tile registry has no counterpart: the kernels take any length >= 1
+(``capscore_agg`` up to ``MAX_LANES`` lanes).  The outputs of one call are
+views into one allocation (the bool ``entered`` apart).
+
+``capscore_agg`` on a CUDA tensor needs ``seg`` to be the dense segment ids
+of ``ks`` (0, 1, ... in order, as ``chunk_order`` makes them): the kernel
+writes each row from the segment that ends at it, and a row that a seg with
+gaps leaves to no segment is undefined there.  The plain version takes any
+sorted ``seg`` in [0, C) and gives such rows the reduction identities.
 """
 from __future__ import annotations
 
@@ -64,6 +72,11 @@ def capscore_agg(ks, eids, ws, seg, ls, taus, salt):
     return capscore_agg_cuda(ks, eids, ws, seg, ls, taus, salt)
 
 
+# capscore_agg.cu's MAX_LANES (it keeps one carry per group of 4 lanes);
+# tests/test_torch_capscore.py holds the two equal
+MAX_LANES = 4096
+
+
 def _check(name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -74,35 +87,52 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _launch(dev, fn, *args):
+    """``fn(*args, stream)`` on ``dev``'s current stream (its raw handle, no
+    ``torch.cuda.Stream`` object made), inside the device's context only
+    where ``dev`` is not already the current device."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+
+
 def capscore_agg_cuda(ks, eids, ws, seg, ls, taus, salt):
-    """The CUDA kernel: one warp per key segment, all lanes per walk."""
+    """The CUDA kernel: one CTA per chunk, segmented scans over its tiles.
+    ``seg`` must be the dense segment ids of ``ks`` (``chunk_order``'s)."""
     dev = ks.device
+    # straight-line checks: this wrapper runs once per ingest chunk
     if dev.type != "cuda":
         raise ValueError(f"capscore_agg_cuda needs CUDA tensors, got {dev}")
-    C = ks.shape[0]
-    L = ls.shape[0]
-    if C == 0 or L == 0:
-        raise ValueError(f"capscore_agg needs C >= 1 and L >= 1, got {C}, {L}")
-    for name, t, dt, shape in (("ks", ks, torch.int32, (C,)),
-                               ("eids", eids, torch.int32, (C,)),
-                               ("ws", ws, torch.float32, (C,)),
-                               ("seg", seg, torch.int32, (C,)),
-                               ("ls", ls, torch.float32, (L,)),
-                               ("taus", taus, torch.float32, (L,))):
-        _check(name, t, dt, shape, dev)
-    w_total = torch.empty(C, dtype=torch.float32, device=dev)
+    if not (ks.dim() == 1 and ks.numel() > 0 and ls.dim() == 1
+            and 0 < ls.numel() <= MAX_LANES):
+        raise ValueError(f"capscore_agg needs ks [C] with C >= 1 and ls [L] with "
+                         f"1 <= L <= {MAX_LANES}, got {tuple(ks.shape)}, {tuple(ls.shape)}")
+    if not (ks.shape == eids.shape == ws.shape == seg.shape and ls.shape == taus.shape):
+        raise ValueError(f"capscore_agg needs ks, eids, ws, seg [C] and ls, taus [L], got "
+                         f"{[tuple(t.shape) for t in (ks, eids, ws, seg, ls, taus)]}")
+    if not (ks.dtype == eids.dtype == seg.dtype == torch.int32
+            and ws.dtype == ls.dtype == taus.dtype == torch.float32):
+        raise ValueError(f"capscore_agg needs int32 ks, eids, seg and float32 ws, ls, taus, "
+                         f"got {[t.dtype for t in (ks, eids, ws, seg, ls, taus)]}")
+    if not dev == eids.device == ws.device == seg.device == ls.device == taus.device:
+        raise ValueError(f"capscore_agg needs every tensor on {dev}, got "
+                         f"{[str(t.device) for t in (eids, ws, seg, ls, taus)]}")
+    if not (ks.is_contiguous() and eids.is_contiguous() and ws.is_contiguous()
+            and seg.is_contiguous() and ls.is_contiguous() and taus.is_contiguous()):
+        raise ValueError("capscore_agg needs contiguous tensors")
+    C, L = ks.shape[0], ls.shape[0]
+    # the four f32 outputs carved from one allocation
+    w_total, contrib, kb_min, min_score = torch.empty(
+        (1 + 3 * L, C), dtype=torch.float32, device=dev).split((1, L, L, L))
+    w_total = w_total[0]
     entered = torch.empty((L, C), dtype=torch.bool, device=dev)
-    contrib = torch.empty((L, C), dtype=torch.float32, device=dev)
-    kb_min = torch.empty((L, C), dtype=torch.float32, device=dev)
-    min_score = torch.empty((L, C), dtype=torch.float32, device=dev)
     lib = _build.load("capscore_agg", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.capscore_agg_launch(
-            ks.data_ptr(), eids.data_ptr(), ws.data_ptr(), seg.data_ptr(), C,
-            ls.data_ptr(), taus.data_ptr(), L, int(salt) & 0xFFFFFFFF,
-            w_total.data_ptr(), entered.data_ptr(), contrib.data_ptr(),
-            kb_min.data_ptr(), min_score.data_ptr(), stream)
+    rc = _launch(dev, lib.capscore_agg_launch,
+                 ks.data_ptr(), eids.data_ptr(), ws.data_ptr(), seg.data_ptr(), C,
+                 ls.data_ptr(), taus.data_ptr(), L, int(salt) & 0xFFFFFFFF,
+                 w_total.data_ptr(), entered.data_ptr(), contrib.data_ptr(),
+                 kb_min.data_ptr(), min_score.data_ptr())
     if rc != 0:
         raise RuntimeError(f"capscore_agg kernel launch failed: CUDA error {rc}")
     capscore_agg_cuda.launches += 1
@@ -126,25 +156,22 @@ def _check_elements(name, keys, eids, weights):
 
 
 def capscore_multi_cuda(keys, eids, weights, ls, taus, salt):
-    """The CUDA kernel: one thread per element, every lane per thread."""
+    """The CUDA kernel: four elements per thread, every lane of them."""
     dev, n = _check_elements("capscore_multi_cuda", keys, eids, weights)
     L = ls.shape[0] if ls.dim() == 1 else 0
     if L == 0:
         raise ValueError(f"capscore_multi needs ls [L] with L >= 1, got {tuple(ls.shape)}")
     _check("ls", ls, torch.float32, (L,), dev)
     _check("taus", taus, torch.float32, (L,), dev)
-    score = torch.empty((L, n), dtype=torch.float32, device=dev)
-    delta = torch.empty((L, n), dtype=torch.float32, device=dev)
-    entry = torch.empty((L, n), dtype=torch.int32, device=dev)
-    kb = torch.empty((L, n), dtype=torch.float32, device=dev)
+    # the four outputs carved from one allocation, entry as int32 bits
+    score, delta, entry, kb = torch.empty((4, L, n), dtype=torch.float32,
+                                          device=dev).unbind(0)
+    entry = entry.view(torch.int32)
     lib = _build.load("capscore", _SCORE_SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.capscore_multi_launch(
-            keys.data_ptr(), eids.data_ptr(), weights.data_ptr(), n,
-            ls.data_ptr(), taus.data_ptr(), L, int(salt) & 0xFFFFFFFF,
-            score.data_ptr(), delta.data_ptr(), entry.data_ptr(), kb.data_ptr(),
-            stream)
+    rc = _launch(dev, lib.capscore_multi_launch,
+                 keys.data_ptr(), eids.data_ptr(), weights.data_ptr(), n,
+                 ls.data_ptr(), taus.data_ptr(), L, int(salt) & 0xFFFFFFFF,
+                 score.data_ptr(), delta.data_ptr(), entry.data_ptr(), kb.data_ptr())
     if rc != 0:
         raise RuntimeError(f"capscore_multi kernel launch failed: CUDA error {rc}")
     capscore_multi_cuda.launches += 1
@@ -157,16 +184,13 @@ capscore_multi_cuda.launches = 0
 def capscore_cuda(keys, eids, weights, l, tau, salt):
     """The CUDA kernel, single lane: ``(l, tau, salt)`` go by value."""
     dev, n = _check_elements("capscore_cuda", keys, eids, weights)
-    score = torch.empty(n, dtype=torch.float32, device=dev)
-    delta = torch.empty(n, dtype=torch.float32, device=dev)
-    entry = torch.empty(n, dtype=torch.int32, device=dev)
+    score, delta, entry = torch.empty((3, n), dtype=torch.float32, device=dev).unbind(0)
+    entry = entry.view(torch.int32)
     lib = _build.load("capscore", _SCORE_SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.capscore_launch(
-            keys.data_ptr(), eids.data_ptr(), weights.data_ptr(), n,
-            float(l), float(tau), int(salt) & 0xFFFFFFFF,
-            score.data_ptr(), delta.data_ptr(), entry.data_ptr(), stream)
+    rc = _launch(dev, lib.capscore_launch,
+                 keys.data_ptr(), eids.data_ptr(), weights.data_ptr(), n,
+                 float(l), float(tau), int(salt) & 0xFFFFFFFF,
+                 score.data_ptr(), delta.data_ptr(), entry.data_ptr())
     if rc != 0:
         raise RuntimeError(f"capscore kernel launch failed: CUDA error {rc}")
     capscore_cuda.launches += 1

@@ -65,9 +65,11 @@ def test_cpu_tensor_takes_plain_version():
 
 
 def test_kernel_variants_edit_the_sources_once():
-    """``kernel_variants.py`` builds each variant of the ``chunksort`` and
-    ``embedding_bag`` kernels by replacing pieces of their sources (or from
-    a source of its own); each piece must be there exactly once."""
+    """``kernel_variants.py`` builds each variant of the ``chunksort``,
+    ``embedding_bag``, ``capscore_agg`` and ``capscore_multi`` kernels by
+    replacing pieces of their sources (or from a source of its own, which
+    must define the entry points its wrapper calls); each piece must be
+    there exactly once."""
     import importlib.util
     from pathlib import Path
 
@@ -77,11 +79,17 @@ def test_kernel_variants_edit_the_sources_once():
     spec.loader.exec_module(kv)
     assert set(kv.VARIANTS) == {"rows1", "rows2", "rows4", "rows8", "rows16", "rows1_vec4",
                                 "registers", "registers_select", "smem_bitonic", "radix4",
-                                "radix6"}
-    assert set(kv.SORTS) | set(kv.BAGS) == set(kv.VARIANTS)
+                                "radix6", "scan", "scan_256x8", "rows_unstaged",
+                                "tail_in_cta0", "warp_per_key", "vec4", "per_element"}
+    assert (set(kv.SORTS) | set(kv.BAGS) | set(kv.AGGS) | set(kv.SCORES)
+            == set(kv.VARIANTS))
+    entry_points = {"radix4": ["chunksort_sort_pairs"], "radix6": ["chunksort_sort_pairs"],
+                    "warp_per_key": ["capscore_agg_launch"],
+                    "per_element": ["capscore_multi_launch", "capscore_launch"]}
     for name, (source, edits) in kv.VARIANTS.items():
         if source is None:
-            assert "chunksort_sort_pairs" in edits, name
+            for fn in entry_points[name]:
+                assert f'extern "C" int {fn}(' in edits, (name, fn)
             continue
         text = (root / f"src/repro_torch/kernels/csrc/{source}.cu").read_text()
         for old, new in edits:

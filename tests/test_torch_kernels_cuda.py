@@ -11,7 +11,8 @@ Tolerances: ``chunksort`` exact (sorted distinct (key, index) pairs are the
 stable argsort).  ``capscore_agg``: ``entered``, ``kb_min`` and
 ``min_score`` exact (the same IEEE divisions in the same order and the same
 ``log1pf`` as PyTorch's CUDA ``log1p``); ``w_total``/``contrib`` within rtol
-1e-5, because the kernel sums in another order than the plain version.
+1e-5, because the kernel sums in another order than the plain version; two
+launches bit-identical (a fixed scan order).
 ``capscore_multi`` and ``capscore``: every output bit-identical (the same
 IEEE operations in the same order and the same ``log1pf``).
 ``flash_attention``: within 2e-5 (f32) and 2e-2 (bf16) of ``attention_ref``
@@ -131,6 +132,56 @@ def test_capscore_agg_kernel_matches_plain(C, L, empty_tail):
                                    rtol=1e-5, atol=0, err_msg=name)
 
 
+def _agg_edge_case(kind, C, L, seed):
+    """Key-sorted chunks at the kernel's edges: Zipf keys with a key of 200
+    elements straddling the first 2048-element tile boundary (from 1990),
+    one key filling the chunk, an EMPTY tail, all EMPTY."""
+    rng = np.random.default_rng(seed)
+    keys = (rng.zipf(1.2, C) % 997).astype(np.int32)
+    if kind == "straddle" and C > 2190:
+        keys[:1990] = np.arange(1990)
+        keys[1990:2190] = 5000
+        keys[2190:] = 5001 + keys[2190:]
+    elif kind == "one_key":
+        keys[:] = 42
+    elif kind == "empty_tail":
+        keys[-max(1, C // 3):] = EMPTY
+    elif kind == "all_empty":
+        keys[:] = EMPTY
+    eids = rng.integers(0, 2**31 - 1, C).astype(np.int32)
+    ws = (rng.random(C) * 3 + 0.05).astype(np.float32)
+    order = chunk_order(*(torch.from_numpy(a).cuda() for a in (keys, eids, ws)))
+    ls = np.resize(np.array([1.0, 16.0, 256.0, 4096.0, 3.0, 64.0, 1024.0, 8.0], np.float32), L)
+    taus = np.resize(np.array([np.inf, 0.5, 1e-3, 2e-3, 0.9, np.inf, 5e-4, 0.2],
+                              np.float32), L)
+    return order, torch.from_numpy(ls).cuda(), torch.from_numpy(taus).cuda()
+
+
+@pytest.mark.parametrize("L", [1, 4, 8])
+@pytest.mark.parametrize("kind,C", [(kind, C) for kind in ("zipf", "straddle")
+                                    for C in (1, 37, 2048, 5000)]
+                         + [(kind, C) for kind in ("one_key", "empty_tail", "all_empty")
+                            for C in (37, 2048, 5000)])
+def test_capscore_agg_kernel_at_its_edges(kind, C, L):
+    """One CTA per chunk: tiles of 2048 with a carry, a segment across the
+    tile boundary, one key in every element, EMPTY rows; two launches give
+    the same bits."""
+    _require_cuda()
+    order, ls, taus = _agg_edge_case(kind, C, L, C * 10 + L)
+    args = (order.ks, order.eids, order.ws, order.seg, ls, taus, SALT)
+    got = cops.capscore_agg_cuda(*args)
+    again = cops.capscore_agg_cuda(*args)
+    want = cops.capscore_agg_ref(*args)
+    torch.cuda.synchronize()
+    for i, name in ((1, "entered"), (3, "kb_min"), (4, "min_score")):
+        assert torch.equal(got[i], want[i]), name
+    for i, name in ((0, "w_total"), (2, "contrib")):
+        np.testing.assert_allclose(got[i].cpu().numpy(), want[i].cpu().numpy(),
+                                   rtol=1e-5, atol=0, err_msg=name)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a), "two launches differ"
+
+
 def _score_case(N, L, seed):
     """Unsorted elements with EMPTY keys and non-unit weights; lanes mixing
     tau = inf, tau*l > 1 and tau*l < 1, and an l that is not exact in f32."""
@@ -159,6 +210,29 @@ def test_capscore_multi_kernel_matches_plain(N, L):
     want = cops.capscore_multi_ref(*elems, ls, taus, SALT)
     for g, w, name in zip(got, want, ("score", "delta", "entry", "kb")):
         assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("L", [1, 4])
+@pytest.mark.parametrize("N", [2048, 1 << 20, (1 << 20) + 3])
+def test_capscore_multi_kernel_on_batches_and_unaligned_views(N, L, offset):
+    """Pass I's batch of 2^20 elements and a ragged one; inputs viewed one
+    element in (off the 16-byte boundary of the vector loads)."""
+    _require_cuda()
+    elems, ls, taus = _score_case(N + offset, L, N + L + offset)
+    elems = [t[offset:] for t in elems]
+    got = cops.capscore_multi_cuda(*elems, ls, taus, SALT)
+    want = cops.capscore_multi_ref(*elems, ls, taus, SALT)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("score", "delta", "entry", "kb")):
+        assert g.dtype == w.dtype, name
+        if g.is_floating_point():
+            # Delta is inf / inf = NaN in a tau = inf lane for an element
+            # whose uniform rounds to 1.0 (one in 2^24), in both versions
+            nan = g.isnan()
+            assert torch.equal(nan, w.isnan()), name
+            g, w = g[~nan], w[~nan]
+        assert torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("l,tau", [(1.0, float("inf")), (3.3, 0.5), (256.0, 1e-3),
