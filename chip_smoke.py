@@ -20,7 +20,8 @@ Phases, each of which fails the run if it fails:
              and, for chunksort, ``torch.sort(stable=True)`` (per call, and
              the device time of the kernel and of all the kernels one
              torch.sort launches); capscore_agg at the main path's chunk and
-             on one key, capscore_multi at pass I's 2^20 and at 2048.
+             on one key, capscore_multi and capscore at pass I's 2^20 and at
+             2048.
 3. main    — ``StreamStatsService(StatsConfig())`` with the service defaults
              (k=4096, ls=(1,16,256,4096), chunk=2048) observes 2^24 Zipf(1.2)
              keys over 2^22 ids in batches of 2^20, then answers one
@@ -44,34 +45,35 @@ Phases, each of which fails the run if it fails:
              over all four shards and queries: the merged summaries equal
              the program's, both paths' pass-II weights equal the exact
              counts, every exact estimate lies within 5 stderr,
-             ``capscore_multi`` launched once per 2^20 elements of a rank's
-             shard (pass I scores in batches) and ``capscore`` once per
-             chunk step per rank.
+             ``capscore_multi`` (the grid program) and ``capscore`` (the
+             single-l one) each launched once per 2^20 elements of a rank's
+             shard (pass I scores in batches).
 2c. flash_attention — the attention kernels against ``attention_ref`` on
-             the card (f32 math; bf16 runs the tensor-core kernel, f32 the
-             FMA kernel): (B,Hq,Hkv,S,D) = (2,4,4,256,64), (2,4,2,256,64),
+             the card (f32 math; bf16 runs the bf16 tensor-core kernel, f32
+             the 3xTF32 tensor-core kernel): (B,Hq,Hkv,S,D) = (2,4,4,256,64), (2,4,2,256,64),
              (2,8,1,384,128), (1,2,2,128,16) and a ragged (1,4,2,200,32), each
              causal and not, contiguous and strided, f32 (tolerance 2e-5)
              and bf16 (2e-2); and the
              serving prefill's shape (4,32,4,4096,128) causal, on the
              strided [B,S,H,D] views the prefill hands it, in f32 (2e-5) and
-             bf16 (atol 1e-4, rtol 2^-7: one bf16 ulp); the tensor-core
+             bf16 (atol 1e-4, rtol 2^-7: one bf16 ulp); each tensor-core
              kernel timed beside the plain version and
-             ``scaled_dot_product_attention``, and the f32 FMA kernel beside
-             ``scaled_dot_product_attention`` in f32.
+             ``scaled_dot_product_attention`` in its dtype, the f32 one also
+             beside the FMA kernel it replaced, in the same call.
 7. LM serving — yi-6b at full width (32 layers, d_model 4096, bf16, random
              weights from a seeded generator on the card), attention through
-             the tensor-core kernel: a batched prefill of 4 prompts of 4096
-             tokens (32 launches of it and none of the FMA kernel, by the
-             counters and by the profile), profiled once; 32 greedy
+             the bf16 tensor-core kernel: a batched prefill of 4 prompts of
+             4096 tokens (32 launches of it and none of the f32 kernels, by
+             the counters and by the profile), profiled once; 32 greedy
              ``decode_step``s; the
              prefill held against the plain chunked attention path and the
              last decode step against a plain prefill of all 4128 tokens;
              then ``DecodeServer`` answers the reference demo's 6 requests;
-             last, the weights upcast to f32, the prefill through the FMA
-             kernel (32 launches) against the plain path again, where f32 sum
-             orders are the only difference and a subtle attention fault
-             shows.
+             last, the weights upcast to f32, the prefill, profiled, through
+             the 3xTF32 kernel (32 launches of it and none of the others, by
+             the counters and by the profile) against the plain path again,
+             where f32 sum orders are the only difference and a subtle
+             attention fault shows.
 2d. segment_sum — the segmented-sum kernel against ``segment_sum_ref`` on the
              card at rtol 1e-5 / atol 1e-5 max|want| (integer-valued rows
              exactly), each case launched twice (bit-identical): the
@@ -138,6 +140,7 @@ PROFILE_STEPS = 64
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
+TF32_TENSOR_OPS_PER_S = 495e12  # dense TF32 tensor-core rate
 SALT = 0x5EED
 EMPTY = 2**31 - 1
 
@@ -494,38 +497,52 @@ def check_capscore_multi(device, rng) -> dict:
 
 def check_capscore(device, rng) -> dict:
     import torch
+    from repro_torch.core.distributed import SCORE_BATCH  # the single-l pass I's launch
     from repro_torch.kernels.capscore import ops
 
     lanes = ((1.0, float("inf")), (16.0, 0.5), (256.0, 1e-3), (3.3, 0.9), (0.7, 0.2))
+    cases = [(N, 0) for N in (1, 7, 2047, 2048, 2049, 65536, SCORE_BATCH, SCORE_BATCH + 3)]
+    cases += [(N, 1) for N in (2048, SCORE_BATCH + 3)]  # off 16 bytes
     n_cases, err = 0, 0.0
-    for N in (1, 7, 2047, 2048, 2049, 65536):
-        elems, _, _ = _score_inputs(device, rng, N, 1)
+    for N, offset in cases:
+        elems, _, _ = _score_inputs(device, rng, N, 1, offset)
         for l, tau in lanes:
             got = ops.capscore_cuda(*elems, l, tau, SALT)
             want = ops.capscore_ref(*elems, l, tau, SALT)
             torch.cuda.synchronize()
             for g, w, name in zip(got, want, ("score", "delta", "entry")):
                 if not _same_bits(g, w):
-                    raise AssertionError(f"capscore {name} differs from the plain "
-                                         f"version (N={N}, l={l}, tau={tau})")
+                    raise AssertionError(f"capscore {name} differs from the plain version "
+                                         f"(N={N}, offset {offset}, l={l}, tau={tau})")
             err = max(err, _max_abs_err(got, want))
             n_cases += 1
     log(f"capscore: every output bit-identical to the plain version on {n_cases} "
-        "cases")
-    elems, _, _ = _score_inputs(device, rng, 2048, 1)
-    N = 2048
-    ms = cuda_ms(lambda: ops.capscore_cuda(*elems, 16.0, float("inf"), SALT))
-    plain = cuda_ms(lambda: ops.capscore_ref(*elems, 16.0, float("inf"), SALT))
-    dev_us = _device_profile(lambda: ops.capscore_cuda(*elems, 16.0, float("inf"), SALT), 20,
-                             "capscore_kernel")["kernel_device_us_per_launch"]
-    b, by = bound_ms(12 * N + 12 * N, N * 120)
-    log(f"capscore N={N}: kernel {ms:.4f} ms ({dev_us} us device per launch), "
-        f"plain {plain:.4f} ms, bound {b:.6f} ms ({by})")
+        f"cases (N in 1..2^20+3 with the single-l pass I's 2^20, views off 16 bytes)")
+    # the single-l pass I's launch (2^20 elements) and one 2048-element chunk
+    rows = {}
+    for N in (SCORE_BATCH, 2048):
+        elems, _, _ = _score_inputs(device, rng, N, 1)
+        call = lambda: ops.capscore_cuda(*elems, 16.0, float("inf"), SALT)  # noqa: E731
+        ms = cuda_ms(call, *((50, 5) if N > 65536 else (200, 20)))
+        plain = cuda_ms(lambda: ops.capscore_ref(*elems, 16.0, float("inf"), SALT),
+                        *((20, 3) if N > 65536 else (200, 20)))
+        dev_us = _device_profile(call, 20, "capscore_kernel")["kernel_device_us_per_launch"]
+        # bytes: keys/eids/weights read once and score/delta/entry written
+        # once, 12 B each per element; operations: ~120 per element
+        b, by = bound_ms(24 * N, N * 120)
+        rows[N] = {"N": N, "ms": ms, "plain_ms": plain, "device_us": dev_us,
+                   "bound_ms": b, "bound_by": by, "bound_share": b * 1e3 / dev_us}
+        log(f"capscore N={N}: kernel {ms:.4f} ms per call ({dev_us} us device per launch), "
+            f"plain {plain:.4f} ms, bound {b:.6f} ms ({by}), {100 * b * 1e3 / dev_us:.2f}% "
+            f"of it")
+    main = rows[SCORE_BATCH]
     return {"name": "capscore", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/capscore.cu",
             "replaces": "src/repro/kernels/capscore/capscore.py:166",
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None}, dev_us
+            "launches": None, "max_abs_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "device_us": main["device_us"],
+            "at_one_chunk": rows[2048]}, main["device_us"]
 
 
 FLASH_CASES = ((2, 4, 4, 256, 64), (2, 4, 2, 256, 64), (2, 8, 1, 384, 128),
@@ -578,8 +595,8 @@ def _closeness(got, want, atol: float, rtol: float) -> dict:
 
 
 def check_flash_prefill(gen) -> tuple:
-    """The kernels at the prefill shape, causal, in f32 (the FMA kernel) and
-    bf16 (the tensor-core kernel), on the strided views the prefill passes,
+    """The kernels at the prefill shape, causal, in f32 (the 3xTF32 kernel)
+    and bf16 (the tensor-core kernel), on the strided views the prefill passes,
     against ``attention_ref`` at ``PREFILL_TOL``.  Returns (readings, {dtype:
     (q, k, v)}); raises ``CheckFailed`` with the readings if either dtype
     fails."""
@@ -607,15 +624,15 @@ def check_flash_prefill(gen) -> tuple:
     return readings, inputs
 
 
-def check_flash_attention(device, seed: int) -> tuple[dict, dict]:
-    """Phase 2c: the kernel's entry for the ``kernels`` line, and the
-    readings at the prefill shape."""
+def check_flash_attention(device, seed: int) -> tuple[list, dict]:
+    """Phase 2c: the two kernels' entries for the ``kernels`` line (bf16,
+    then f32), and the readings at the prefill shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    n_cases, err = 0, 0.0
+    n_cases, err = 0, {"float32": 0.0, "bfloat16": 0.0}
     for shape in FLASH_CASES:
         for dtype in ("float32", "bfloat16"):
             for causal in (True, False):
@@ -630,10 +647,10 @@ def check_flash_attention(device, seed: int) -> tuple[dict, dict]:
                         raise AssertionError(
                             f"flash_attention differs from attention_ref: {shape} {dtype} "
                             f"causal={causal} strided={strided}, max abs {d}")
-                    err = max(err, d)
+                    err[dtype] = max(err[dtype], d)
                     n_cases += 1
     log(f"flash_attention: within 2e-5 (f32) / 2e-2 (bf16) of attention_ref on "
-        f"{n_cases} cases (contiguous and strided); max abs err {err:.3e}")
+        f"{n_cases} cases (contiguous and strided); max abs err {err}")
 
     B, Hq, Hkv, S, D = PREFILL_SHAPE
     prefill, inputs = check_flash_prefill(gen)
@@ -642,18 +659,27 @@ def check_flash_attention(device, seed: int) -> tuple[dict, dict]:
                     f"worst |d| / (atol + rtol |want|) {r['worst_ratio']:.3f} "
                     f"(atol, rtol {PREFILL_TOL[dt]})" for dt, r in prefill.items()))
     # operations: QK^T and P.V over the S(S+1)/2 unmasked (q, kv) pairs of
-    # each head, 2 FLOP per multiply-add (the tensor-core kernel's P_lo.V
-    # pass is not counted as work); bytes: q, k, v read once, o written once
+    # each head, 2 FLOP per multiply-add (the split halves' extra products
+    # are not counted as work: bf16's P_lo.V pass; f32's three TF32 products
+    # count as three); bytes: q, k, v read once, o written once
     n_ops = 4 * B * Hq * D * S * (S + 1) / 2
     n_elems = 2 * B * Hq * S * D + 2 * B * Hkv * S * D
     q32, k32, v32 = inputs.pop("float32")
-    fma_ms = cuda_ms(lambda: ops.flash_attention_cuda(q32, k32, v32, causal=True), iters=3,
+    f32_call = lambda: ops.flash_attention_cuda(q32, k32, v32, causal=True)  # noqa: E731
+    tf32_ms = cuda_ms(f32_call, iters=10, warmup=2)
+    tf32_dev_us = _device_profile(f32_call, 3, "flash_tf32_kernel")["kernel_device_us_per_launch"]
+    # the FMA kernel this one replaced, and the f32 yardstick: SDPA on the
+    # same f32 views (TF32 off, exact_f32)
+    fma_ms = cuda_ms(lambda: ops.flash_attention_fma(q32, k32, v32, causal=True), iters=3,
                      warmup=1)
-    fma_bound, fma_by = bound_ms(4 * n_elems, n_ops)
-    # the f32 yardstick: SDPA on the same f32 views (TF32 off, exact_f32)
     sdpa_f32 = cuda_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32, is_causal=True,
                                                               enable_gqa=True),
                        iters=3, warmup=1)
+    tf32_again = cuda_ms(f32_call, iters=10, warmup=2)  # kernel, yardsticks, kernel
+    plain_f32 = cuda_ms(lambda: ops.attention_ref(q32, k32, v32, causal=True), iters=2,
+                        warmup=1)
+    tf32_bound, tf32_by = bound_ms(4 * n_elems, 3 * n_ops, TF32_TENSOR_OPS_PER_S)
+    fma_bound, fma_by = bound_ms(4 * n_elems, n_ops)
     del q32, k32, v32
     torch.cuda.empty_cache()
     q, k, v = inputs.pop("bfloat16")
@@ -670,22 +696,36 @@ def check_flash_attention(device, seed: int) -> tuple[dict, dict]:
     log(f"flash_attention {PREFILL_SHAPE} bf16 causal: tensor-core kernel {ms:.4f} ms "
         f"({n_ops / ms * 1e-9:.2f} TFLOP/s; {dev_us} us device per launch), plain "
         f"{plain:.4f} ms, scaled_dot_product_attention {library:.4f} ms "
-        f"({ms / library:.2f}x its time), bound {b:.6f} ms ({by}); f32 FMA kernel "
-        f"{fma_ms:.4f} ms ({n_ops / fma_ms * 1e-9:.2f} TFLOP/s), f32 bound {fma_bound:.6f} ms "
-        f"({fma_by}, FMA rate), scaled_dot_product_attention in f32 {sdpa_f32:.4f} ms")
-    max_abs = max(err, *(r["max_abs"] for r in prefill.values()))
+        f"({ms / library:.2f}x its time), bound {b:.6f} ms ({by})")
+    log(f"flash_attention {PREFILL_SHAPE} f32 causal: 3xTF32 kernel {tf32_ms:.4f} ms, "
+        f"{tf32_again:.4f} ms after the yardsticks ({n_ops / tf32_ms * 1e-9:.2f} TFLOP/s of "
+        f"attention; {tf32_dev_us} us device per launch), its 3xTF32 bound "
+        f"{tf32_bound:.6f} ms ({tf32_by}, {100 * tf32_bound / tf32_ms:.2f}% of it), the FMA "
+        f"bound {fma_bound:.6f} ms ({fma_by}, {100 * fma_bound / tf32_ms:.2f}%); in the "
+        f"same call the FMA kernel it replaced {fma_ms:.4f} ms, scaled_dot_product_attention "
+        f"in f32 {sdpa_f32:.4f} ms, plain {plain_f32:.4f} ms")
+    max_abs = {dt: max(err[dt], prefill[dt]["max_abs"]) for dt in prefill}
     prefill["timing"] = {"tc_ms": ms, "tc_tflops": n_ops / ms * 1e-9,
                          "tc_device_us_per_launch": dev_us, "plain_ms": plain,
-                         "sdpa_ms": library, "bound_ms": b, "fma_f32_ms": fma_ms,
-                         "fma_f32_bound_ms": fma_bound, "sdpa_f32_ms": sdpa_f32}
-    return {"name": "flash_attention", "route": "cuda",
+                         "sdpa_ms": library, "bound_ms": b, "tf32_ms": [tf32_ms, tf32_again],
+                         "tf32_device_us_per_launch": tf32_dev_us,
+                         "tf32_bound_ms": tf32_bound, "fma_f32_ms": fma_ms,
+                         "fma_f32_bound_ms": fma_bound, "sdpa_f32_ms": sdpa_f32,
+                         "plain_f32_ms": plain_f32}
+    bf16 = {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-            "sources": {"bfloat16": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-                        "float32": "src/repro_torch/kernels/csrc/flash_attention.cu"},
             "replaces": "src/repro/kernels/flash_attention/flash_attention.py:72",
-            "launches": None, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain, "bound_ms": b, "bound_by": by,
-            "library_ms": library, "library_ms_f32": sdpa_f32, "ms_f32": fma_ms}, prefill
+            "launches": None, "max_abs_err": max_abs["bfloat16"], "ms": ms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": library,
+            "dtype": "bfloat16"}
+    f32 = {"name": "flash_attention_f32", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_sm90_f32.cu",
+           "replaces": "src/repro/kernels/flash_attention/flash_attention.py:72",
+           "launches": None, "max_abs_err": max_abs["float32"], "ms": tf32_ms,
+           "plain_ms": plain_f32, "bound_ms": tf32_bound, "bound_by": tf32_by,
+           "library_ms": sdpa_f32, "dtype": "float32", "device_us": tf32_dev_us,
+           "fma_bound_ms": fma_bound, "fma_kernel_ms": fma_ms}
+    return [bf16, f32], prefill
 
 
 # the two-tower pooling at serve_p99 and serve_bulk: N history rows of
@@ -1393,7 +1433,7 @@ def _merge_and_check(gathered, prog, keys, cfg, batch) -> dict:
         if o["digest"] != ranks[0]["digest"]:
             raise AssertionError(f"rank {o['rank']}'s program result differs from rank 0's")
         # pass I scores the shard in launches of whole chunks, SCORE_BATCH
-        # elements at most, as pass1_local_multi does
+        # elements at most (pass1_local_multi through capscore_multi)
         score_launches = -(-o["steps"] // max(1, DZ.SCORE_BATCH // cfg.chunk))
         for merge in ("tree", "allgather"):
             la = o[f"launches_{merge}"]
@@ -1401,10 +1441,11 @@ def _merge_and_check(gathered, prog, keys, cfg, batch) -> dict:
                 raise AssertionError(f"rank {o['rank']} merge={merge}: capscore_multi "
                                      f"launched {la['capscore_multi']} times for a shard "
                                      f"of {m} elements, not {score_launches}")
-        if o["launches_single"]["capscore"] != o["steps"]:
+        # and so does the single-l program, through capscore
+        if o["launches_single"]["capscore"] != score_launches:
             raise AssertionError(f"rank {o['rank']}: capscore launched "
-                                 f"{o['launches_single']['capscore']} times for "
-                                 f"{o['steps']} chunk steps")
+                                 f"{o['launches_single']['capscore']} times for a shard of "
+                                 f"{m} elements, not {score_launches}")
     for a, b in zip(prog["tree"], prog["allgather"]):
         if not np.array_equal(a, b):
             raise AssertionError("tree and all-gather merges differ")
@@ -1599,14 +1640,19 @@ def run_lm_serving(seed: int, device) -> dict:
     def reset_counters():
         for c in counters.values():
             c.launches = 0
-        flash.launches_tc = flash.launches_fma = 0
+        flash.launches_tc = flash.launches_tf32 = flash.launches_fma = 0
 
-    def hold_routes(what: str, tc: int, fma: int) -> None:
-        """The prefill's launches of the tensor-core and the FMA kernel."""
-        if (flash.launches_tc, flash.launches_fma) != (tc, fma):
-            failures.append(f"{what}: the tensor-core kernel launched {flash.launches_tc} "
-                            f"times and the FMA kernel {flash.launches_fma} (want {tc} and "
-                            f"{fma} in a prefill of {cfg.n_layers} layers)")
+    def routes():
+        return {"flash_attention_tc": flash.launches_tc,
+                "flash_attention_tf32": flash.launches_tf32,
+                "flash_attention_fma": flash.launches_fma}
+
+    def hold_routes(what: str, want: dict) -> None:
+        """The prefill's launches of the bf16 and the 3xTF32 tensor-core
+        kernel and of the FMA kernel."""
+        if routes() != want:
+            failures.append(f"{what}: launches {routes()}, want {want} in a prefill of "
+                            f"{cfg.n_layers} layers")
 
     reset_counters()
     sync()
@@ -1615,21 +1661,22 @@ def run_lm_serving(seed: int, device) -> dict:
     sync()
     t_prefill = time.perf_counter() - t0
     out["launches"] = {name: c.launches for name, c in counters.items()}
-    out["launches"].update(flash_attention_tc=flash.launches_tc,
-                           flash_attention_fma=flash.launches_fma)
+    out["launches"].update(routes())
     failures = []
-    hold_routes("bf16 prefill", cfg.n_layers, 0)
+    hold_routes("bf16 prefill", {"flash_attention_tc": cfg.n_layers, "flash_attention_tf32": 0,
+                                 "flash_attention_fma": 0})
     out.update(prefill_ms=t_prefill * 1e3, prefill_tokens_per_s=B * S / t_prefill,
                max_memory_allocated_prefill=(torch.cuda.max_memory_allocated()
                                              if device.type == "cuda" else None))
     if device.type == "cuda":
         prof = out["prefill_profile"] = _device_profile(
-            lambda: T.prefill(params, cfg, tokens), 1, "flash_tc_kernel", ("flash_kernel",))
+            lambda: T.prefill(params, cfg, tokens), 1, "flash_tc_kernel",
+            ("flash_tf32_kernel", "flash_kernel"))
         if (prof["tag_launches_per_call"] != cfg.n_layers
-                or prof["other_launches_per_call"]["flash_kernel"] != 0):
+                or any(prof["other_launches_per_call"].values())):
             failures.append(f"bf16 prefill profile: {prof['tag_launches_per_call']} launches "
                             f"of flash_tc_kernel, {prof['other_launches_per_call']} of the "
-                            f"FMA kernel (want {cfg.n_layers} and 0)")
+                            f"f32 kernels (want {cfg.n_layers} and none)")
 
     sync()
     t0 = time.perf_counter()
@@ -1693,9 +1740,23 @@ def run_lm_serving(seed: int, device) -> dict:
     params = T.tree_map(lambda t: t.float(), params)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     reset_counters()
-    got = T.prefill(params, cfg32, tokens)
-    got = (got[0], *got[1])
-    hold_routes("f32 prefill", 0, cfg.n_layers)
+    f32_out = []
+    if device.type == "cuda":  # the checked prefill itself, profiled
+        prof32 = out["f32_prefill_profile"] = _device_profile(
+            lambda: f32_out.append(T.prefill(params, cfg32, tokens)), 1, "flash_tf32_kernel",
+            ("flash_tc_kernel", "flash_kernel"))
+        if (prof32["tag_launches_per_call"] != cfg.n_layers
+                or any(prof32["other_launches_per_call"].values())):
+            failures.append(f"f32 prefill profile: {prof32['tag_launches_per_call']} launches "
+                            f"of flash_tf32_kernel, {prof32['other_launches_per_call']} of the "
+                            f"others (want {cfg.n_layers} and none)")
+    else:
+        f32_out.append(T.prefill(params, cfg32, tokens))
+    got = (f32_out[0][0], *f32_out[0][1])
+    del f32_out
+    out["launches_f32_prefill"] = routes()
+    hold_routes("f32 prefill", {"flash_attention_tc": 0, "flash_attention_tf32": cfg.n_layers,
+                                "flash_attention_fma": 0})
     want = T.prefill(params, dataclasses.replace(plain, dtype=torch.float32), tokens)
     _hold_prefill(out, failures, "f32_prefill", got, (want[0], *want[1]), LM_F32_REL_L2_TOL)
     del got, want, params
@@ -1703,6 +1764,7 @@ def run_lm_serving(seed: int, device) -> dict:
         torch.cuda.empty_cache()
     prof = out.get("prefill_profile", {})
     dprof = out.get("decode_profile", {})
+    prof32 = out.get("f32_prefill_profile", {})
     log(f"phase 7 ({cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, "
         f"{out['n_params']} parameters, init {out['init_s']:.1f} s): prefill {B}x{S} in "
         f"{out['prefill_ms']:.1f} ms ({out['prefill_tokens_per_s']:.1f} tokens/s, plain path "
@@ -1720,7 +1782,11 @@ def run_lm_serving(seed: int, device) -> dict:
         f"v {out['prefill_v_cache_rel_l2']:.3e}, last decode step vs full prefill "
         f"{rel:.3e} (argmax equal {out['decode_vs_full_prefill_argmax_equal']}/{B}); "
         f"f32 copy: prefill logits {out['f32_prefill_logits_rel_l2']:.3e}, k "
-        f"{out['f32_prefill_k_cache_rel_l2']:.3e}, v {out['f32_prefill_v_cache_rel_l2']:.3e}; "
+        f"{out['f32_prefill_k_cache_rel_l2']:.3e}, v {out['f32_prefill_v_cache_rel_l2']:.3e}, "
+        f"launches {out['launches_f32_prefill']}, attention "
+        f"{prof32.get('kernel_device_ms_per_call')} ms of {prof32.get('device_busy_ms_per_call')} "
+        f"ms device time ({prof32.get('kernel_device_us_per_launch')} us per launch, wall "
+        f"{prof32.get('wall_ms_per_call')} ms, profiled); "
         f"DecodeServer: 6 requests, {res['tokens']} tokens in {res['seconds']:.2f} s "
         f"({out['server']['tokens_per_s']:.1f} tokens/s, {res['steps']} steps; token-by-token "
         f"admit and decode only, so flash_attention launched "
@@ -2044,7 +2110,7 @@ def main(argv=None) -> int:
         entry, device_us[entry["name"]] = timed(f"2 {check.__name__[6:]}", check, device, rng)
         kernels.append(entry)
     flash, flash_prefill = timed("2c", check_flash_attention, device, args.seed)
-    kernels.append(flash)
+    kernels.extend(flash)
     segsum, segsum_serving = timed("2d segment_sum", check_segment_sum, device, rng)
     kernels.append(segsum)
     bag, bag_serving = timed("2d embedding_bag", check_embedding_bag, device, rng)
@@ -2063,7 +2129,9 @@ def main(argv=None) -> int:
     # launches segment_sum no time.  Phase 2d drives it alone, so its path
     # count is 0 and the gate below passes it by name.
     launches = {**main_path["launches"], **distributed["launches"],
-                "flash_attention": lm["launches"]["flash_attention"], **recsys["launches"],
+                "flash_attention": lm["launches"]["flash_attention_tc"],
+                "flash_attention_f32": lm["launches_f32_prefill"]["flash_attention_tf32"],
+                **recsys["launches"],
                 "segment_sum": 0}
     for k in kernels:
         k["launches"] = launches[k["name"]]

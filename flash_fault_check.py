@@ -4,20 +4,22 @@ checks of them see: do their limits separate a faulty kernel from a sound one?
 
     python3 flash_fault_check.py [--seed 0] [--variants sound,drop_tile,...]
 
-Builds the two attention kernels as they are (``src/repro_torch/kernels/
-csrc/flash_attention_sm90.cu``, the bf16 tensor-core kernel, and
-``flash_attention.cu``, the f32 FMA kernel) and four mutants, each a copy
-with one planted fault, compiled into a temporary directory (the checkout's
-sources are not touched):
+Builds the two attention kernels of the routes as they are (``src/
+repro_torch/kernels/csrc/flash_attention_sm90.cu``, the bf16 tensor-core
+kernel, and ``flash_attention_sm90_f32.cu``, the f32 3xTF32 tensor-core
+kernel) and five mutants, each a copy with one planted fault, compiled into
+a temporary directory (the checkout's sources are not touched):
 
 * ``drop_tile``  — skips one kv tile (the middle one) of every block whose
-  loop is long: at S = 4096, causal, the rows past 1920 (tensor-core kernel,
-  tiles of 128, loops of at least 16 tiles) or past 2048 (FMA kernel, tiles
-  of 64, at least 32) lose 1/16..1/64 of their keys;
+  loop is long: at S = 4096, causal, the rows past 1920 lose 1/16..1/32 of
+  their keys (bf16 kernel: tiles of 128, loops of at least 16 tiles) or
+  1/64..1/128 (f32 kernel: tiles of 32, loops of at least 64);
 * ``shift_mask`` — the causal mask also hides the diagonal;
 * ``zero_out``   — stores zeros;
-* ``drop_lo``    — the tensor-core kernel skips the P_lo.V product, so P is
-  rounded once to bf16 (the FMA kernel is left sound).
+* ``drop_lo``    — the bf16 kernel skips the P_lo.V product, so P is
+  rounded once to bf16 (the f32 kernel is left sound);
+* ``tf32_only``  — the f32 kernel's split keeps no lo half (lo = 0), so
+  every product is one TF32 product (the bf16 kernel is left sound).
 
 The first three plant the fault in both kernels, so the bf16 and the f32
 checks each see it.
@@ -43,21 +45,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-DROP_AT = "  for (int j = 0; j < upper; ++j) {\n    const int k0 = j * BK;\n"
-TC, FMA = "flash_attention_sm90", "flash_attention"
+TC, TF32 = "flash_attention_sm90", "flash_attention_sm90_f32"
+SOFTMAX_TF32 = "      softmax_tile(s, m, l, alpha, j, S, causal, at);\n"
 # mutant -> {library: (text of its source, the text that replaces it)}
 MUTANTS = {
     "drop_tile": {
         TC: ("int k_end = S;", "int k_end = (n_tiles >= 16 && j == n_tiles / 2) ? 0 : S;"),
-        FMA: (DROP_AT, DROP_AT.replace(
-            "{\n", "{\n    if (upper >= 32 && j == upper / 2) continue;\n", 1))},
+        TF32: (SOFTMAX_TF32, "      if (n_tiles >= 64 && j == n_tiles / 2) {\n"
+                             "#pragma unroll\n"
+                             "        for (int i = 0; i < BK / 2; ++i) s[i] = NEG_INF;\n"
+                             "      }\n" + SOFTMAX_TF32)},
     "shift_mask": {TC: ("(causal && kpos > qpos)", "(causal && kpos >= qpos)"),
-                   FMA: ("(causal && qpos < kpos)", "(causal && qpos <= kpos)")},
+                   TF32: ("(causal && kpos > qpos)", "(causal && kpos >= qpos)")},
     "zero_out": {TC: ("__floats2bfloat162_rn(o0 / l[r], o1 / l[r])",
                       "__floats2bfloat162_rn(0.0f, 0.0f)"),
-                 FMA: ("from_f32<T>(acc[i][c] / l[i])", "from_f32<T>(0.0f)")},
+                 TF32: ("make_float2(acc[4 * c + 2 * r] / l[r], acc[4 * c + 2 * r + 1] / l[r])",
+                        "make_float2(0.0f, 0.0f)")},
     "drop_lo": {TC: ("wgmma_rs<D>(acc, p_lo[kk], desc_mn_major<D>(v_tile, kk * 16));",
                      ";")},
+    "tf32_only": {TF32: ("  lo = tf32_rna(x - __uint_as_float(hi));", "  lo = 0u;")},
 }
 LM_KEYS = ("prefill_logits_rel_l2", "prefill_k_cache_rel_l2", "prefill_v_cache_rel_l2",
            "decode_vs_full_prefill_rel_l2", "f32_prefill_logits_rel_l2",
@@ -71,7 +77,7 @@ def build_mutants(names, out_dir: Path) -> dict[str, dict[str, Path]]:
 
     jobs, libs = {}, {}
     for name in names:
-        libs[name] = {lib: _build._target(lib) for lib in (TC, FMA)}
+        libs[name] = {lib: _build._target(lib) for lib in (TC, TF32)}
         for lib, (old, new) in MUTANTS[name].items():
             source = (_build.CSRC / f"{lib}.cu").read_text()
             if source.count(old) != 1:
@@ -126,8 +132,8 @@ def main(argv=None) -> int:
     result = {"card": smi, "seed": args.seed, "variants": {}}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        _build.build_all((TC, FMA))
-        libs = {"sound": {lib: _build._target(lib) for lib in (TC, FMA)},
+        _build.build_all((TC, TF32))
+        libs = {"sound": {lib: _build._target(lib) for lib in (TC, TF32)},
                 **build_mutants([v for v in variants if v != "sound"], Path(tmp))}
         cs.log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
         for name in variants:

@@ -307,17 +307,23 @@ def pass1_shard(keys_shard, weights_shard, *, kind, l, salt, k, chunk,
                 merge="tree", group=None):
     """Per-rank pass I over the local stream shard (int32 keys, f32 weights
     on the device) plus the cross-rank merge: the bottom-(k+1) (key, seed)
-    summary of the whole stream, on every rank."""
+    summary of the whole stream, on every rank.  The shard is scored
+    (``element_scores``: the ``capscore`` kernel for ``kind="continuous"``
+    on a card) in batches of whole chunks, at most ``SCORE_BATCH`` elements
+    each; every score is elementwise, so each chunk's slice is the score of
+    that chunk alone, and the chunk loop folds it into the carry."""
     merge_fn = _merge_fn(merge, multi=False)
     n_chunks, eids = _shard_layout(keys_shard, chunk, group)
     cap = k + 1
     dev = keys_shard.device
     carry = (torch.full((cap,), EMPTY, dtype=torch.int32, device=dev),
              torch.full((cap,), INF, dtype=torch.float32, device=dev))
-    for c in range(n_chunks):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        carry = VZ.pass1_step(carry, keys_shard[sl], weights_shard[sl], eids[sl],
-                              l, salt, kind=kind, cap=cap)
+    for lo, hi in _score_batches(n_chunks, chunk):
+        scores = VZ.element_scores(kind, keys_shard[lo:hi], eids[lo:hi],
+                                   weights_shard[lo:hi], l, salt)
+        for a in range(0, hi - lo, chunk):
+            carry = VZ.pass1_step_scored(carry, keys_shard[lo + a:lo + a + chunk],
+                                         scores[a:a + chunk], cap=cap)
     return merge_fn(*carry, cap, group)
 
 
@@ -342,10 +348,18 @@ def pass2_shard(keys_shard, weights_shard, sampled_sorted, *, group=None):
                           group)
 
 
-# elements scored per ``capscore_multi`` launch in pass I: the kernel is
-# bandwidth-bound at this size, and its [L, SCORE_BATCH] x 4 outputs stay
-# bounded (64 MB at L = 4)
+# elements scored per launch in pass I (``capscore_multi``, or ``capscore``
+# at one l): the kernels are bandwidth-bound at this size, and the
+# [L, SCORE_BATCH] x 4 outputs stay bounded (64 MB at L = 4)
 SCORE_BATCH = 1 << 20
+
+
+def _score_batches(n_chunks: int, chunk: int):
+    """(lo, hi) element ranges of whole chunks, ``SCORE_BATCH`` elements at
+    most each (one chunk where a chunk is larger)."""
+    per_launch = max(1, SCORE_BATCH // chunk)
+    for c0 in range(0, n_chunks, per_launch):
+        yield c0 * chunk, min(n_chunks, c0 + per_launch) * chunk
 
 
 def pass1_local_multi(keys_shard, weights_shard, *, ls, salt, k, chunk,
@@ -365,9 +379,7 @@ def pass1_local_multi(keys_shard, weights_shard, *, ls, salt, k, chunk,
     taus = torch.full((L,), INF, dtype=torch.float32, device=dev)
     carry = (torch.full((L, cap), EMPTY, dtype=torch.int32, device=dev),
              torch.full((L, cap), INF, dtype=torch.float32, device=dev))
-    per_launch = max(1, SCORE_BATCH // chunk)
-    for c0 in range(0, n_chunks, per_launch):
-        lo, hi = c0 * chunk, min(n_chunks, c0 + per_launch) * chunk
+    for lo, hi in _score_batches(n_chunks, chunk):
         score, _, _, _ = capscore_multi(keys_shard[lo:hi], eids[lo:hi],
                                         weights_shard[lo:hi], ls, taus, salt)
         for a in range(0, hi - lo, chunk):

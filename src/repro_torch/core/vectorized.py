@@ -293,6 +293,15 @@ def chunk_bottomk_summary_scored(keys, scores):
     return order.ukeys, torch.where(is_live(order.ukeys), mins, INF)
 
 
+def pass1_step_scored(carry, keys, scores, *, cap):
+    """Advance a single-lane bottom-cap summary ([cap] keys/seeds) by one
+    chunk whose element scores [C] were already computed (``element_scores``
+    over a batch of chunks): ``pass1_step`` without the scoring."""
+    skeys, sseeds = carry
+    ukeys, mins = chunk_bottomk_summary_scored(keys, scores[None])
+    return merge_bottomk_summary(skeys, sseeds, ukeys, mins[0], cap)
+
+
 def pass1_step_multi(carry, keys, scores, *, cap):
     """Advance stacked per-lane bottom-cap summaries ([L, cap] keys/seeds)
     by one chunk whose multi-lane scores were already computed

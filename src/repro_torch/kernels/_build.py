@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("chunksort", "capscore_agg", "capscore", "flash_attention",
-           "flash_attention_sm90", "segment_sum", "embedding_bag")
+           "flash_attention_sm90", "flash_attention_sm90_f32", "segment_sum",
+           "embedding_bag")
 
 # name -> ctypes.CDLL, filled by load(); one load per process
 _LIBS: dict[str, ctypes.CDLL] = {}

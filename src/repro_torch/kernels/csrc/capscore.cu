@@ -7,21 +7,21 @@
 // score = v <= 1/l ? kb : v, Delta = e / max(1/l, tau) and the entry flag
 // (Delta < w and (tau * l > 1 or kb < tau)) — paper eq. 10, Algorithm 4.
 //
-// Design: capscore_multi, the pass-I kernel, takes 4 consecutive elements per
-// thread in a grid-stride loop over at most 8 blocks of 256 threads per SM
-// (full occupancy).  Keys, eids and weights come in as one 16-byte load
-// each, and each lane's four results go out as one 16-byte store into row j
-// of each [L, N] output, at [j * N + i], so every row is written coalesced.
-// The element's hashes, e and v are computed once and every lane reuses
-// them (the TPU kernel kept them in VMEM across lanes for the same reason).
-// A base pointer off a 16-byte boundary (a view at an odd offset), a row of
-// an output that starts off one (N not a multiple of 4), and the ragged
-// tail take scalar loads or stores of the same values.  capscore, whose
-// caller scores one 2048-element chunk per launch, keeps one element per
-// thread, so those few elements still spread over 8 blocks.  The
-// multi-lane entry point reads (ls, taus) from device memory; the
-// single-lane one takes (l, tau, salt) by value, so no device scalar is
-// ever made.
+// Design: both kernels take 4 consecutive elements per thread in a
+// grid-stride loop over at most 8 blocks of 256 threads per SM (full
+// occupancy).  Keys, eids and weights come in as one 16-byte load each, and
+// each lane's four results go out as one 16-byte store into row j of each
+// output ([L, N] for capscore_multi, at [j * N + i], so every row is written
+// coalesced).  The element's hashes, e and v are computed once and every
+// lane reuses them (the TPU kernel kept them in VMEM across lanes for the
+// same reason).  A base pointer off a 16-byte boundary (a view at an odd
+// offset), a row of an output that starts off one (N not a multiple of 4),
+// and the ragged tail take scalar loads or stores of the same values.  Both
+// callers score whole batches: distributed pass I launches capscore_multi,
+// and the single-l pass I capscore (through vectorized.element_scores), on
+// up to 2^20 elements of whole chunks at a time.  The multi-lane entry point
+// reads (ls, taus) from device memory; the single-lane one takes (l, tau,
+// salt) by value, so no device scalar is ever made.
 //
 // Exactness: the plain PyTorch versions (kernels/capscore/ref.py) do the same
 // IEEE f32 operations in the same order — ku / l is a division, never
@@ -31,11 +31,11 @@
 // --use_fast_math).  So all four outputs equal the plain version bit for bit.
 //
 // What bounds it on an H100: it reads 12 B and writes 16 B per lane per
-// element.  At distributed pass I's launch of 2^20 elements and L = 4 that
-// is 79.7 MB, 23.8 us at 3.35 TB/s, above its some 110 + 10 L integer and
-// float operations per element (2.3 us at 67 TFLOP/s): bandwidth-bound.  At
-// one 2048-element chunk (the single-lane caller, vectorized.element_scores)
-// the bytes take 0.05 us and a launch's latency sets its time.
+// element (12 B for capscore, which writes no KeyBase).  At pass I's launch
+// of 2^20 elements and L = 4 that is 79.7 MB, 23.8 us at 3.35 TB/s, and
+// 25.2 MB, 7.5 us for capscore's one lane, above their some 110 + 10 L
+// integer and float operations per element (2.3 us at 67 TFLOP/s):
+// bandwidth-bound.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -50,7 +50,7 @@ using hash32::SALT_ELEM;
 using hash32::SALT_KEYBASE;
 
 constexpr int THREADS = 256;
-constexpr int VEC = 4;                // capscore_multi's elements per thread
+constexpr int VEC = 4;                // elements per thread
 constexpr int MAX_BLOCKS = 132 * 8;   // 2048 threads per SM: full occupancy
 
 struct Element {
@@ -161,17 +161,31 @@ capscore_kernel(const int* __restrict__ keys, const int* __restrict__ eids,
                 const float* __restrict__ weights, int n, float l, float tau,
                 uint32_t salt, float* __restrict__ score,
                 float* __restrict__ delta, int* __restrict__ entry) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const Element x = element(keys[i], eids[i], weights[i], salt);
-    float k;
-    score_lane(x, l, tau, score + i, delta + i, entry + i, &k);
+  const bool vec = aligned16(keys) && aligned16(eids) && aligned16(weights);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x * VEC;
+  for (long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
+       i < n; i += stride) {
+    const int cnt = n - i < VEC ? static_cast<int>(n - i) : VEC;
+    int kk[VEC], ee[VEC];
+    float ww[VEC];
+    load_vec(keys, i, cnt, vec, kk);
+    load_vec(eids, i, cnt, vec, ee);
+    load_vec(weights, i, cnt, vec, ww);
+    float s[VEC], d[VEC], k;
+    int en[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q)
+      score_lane(element(kk[q], ee[q], q < cnt ? ww[q] : 1.0f, salt), l, tau, &s[q], &d[q],
+                 &en[q], &k);
+    store_vec(score, i, cnt, s);
+    store_vec(delta, i, cnt, d);
+    store_vec(entry, i, cnt, en);
   }
 }
 
-// blocks for n elements at `per_thread` each, grid-stride beyond MAX_BLOCKS
-int blocks_for(int n, int per_thread) {
-  const long long per_block = static_cast<long long>(THREADS) * per_thread;
+// blocks for n elements at VEC each, grid-stride beyond MAX_BLOCKS
+int blocks_for(int n) {
+  const long long per_block = static_cast<long long>(THREADS) * VEC;
   const long long b = (n + per_block - 1) / per_block;
   return static_cast<int>(b < MAX_BLOCKS ? b : MAX_BLOCKS);
 }
@@ -187,7 +201,7 @@ extern "C" int capscore_multi_launch(const int* keys, const int* eids,
                                      float* delta, int* entry, float* kb,
                                      void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  capscore_multi_kernel<<<blocks_for(n, VEC), THREADS, 0, stream>>>(
+  capscore_multi_kernel<<<blocks_for(n), THREADS, 0, stream>>>(
       keys, eids, weights, n, ls, taus, L, salt, score, delta, entry, kb);
   return static_cast<int>(cudaGetLastError());
 }
@@ -199,7 +213,7 @@ extern "C" int capscore_launch(const int* keys, const int* eids,
                                unsigned int salt, float* score, float* delta,
                                int* entry, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  capscore_kernel<<<blocks_for(n, 1), THREADS, 0, stream>>>(
+  capscore_kernel<<<blocks_for(n), THREADS, 0, stream>>>(
       keys, eids, weights, n, l, tau, salt, score, delta, entry);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,12 @@
 // Blockwise (FlashAttention-style) causal or non-causal GQA attention,
 // forward only, for f32 inputs on the FMA units.
 //
-// Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py
-// `flash_attention` (`_flash_kernel`) for float32; bfloat16 inputs go to the
-// tensor-core kernel in flash_attention_sm90.cu.  It computes what that
-// kernel computes: q [B,Hq,S,D] and k, v [B,Hkv,S,D]; q head h reads kv head
+// The first port of the TPU kernel repro/kernels/flash_attention/
+// flash_attention.py `flash_attention` (`_flash_kernel`) for float32.  It is
+// on no route now: f32 goes to the 3xTF32 tensor-core kernel in
+// flash_attention_sm90_f32.cu, bf16 to flash_attention_sm90.cu, and this
+// one is kept as the yardstick the f32 route is timed against
+// (ops.flash_attention_fma).  It computes what the TPU kernel computes: q [B,Hq,S,D] and k, v [B,Hkv,S,D]; q head h reads kv head
 // h / (Hq/Hkv); q is scaled by 1/sqrt(D) before QK^T; masked scores are set
 // to NEG_INF = -1e30; the online softmax keeps m, l and acc in f32 across kv
 // tiles; the output is acc / l.  A ragged S (not a multiple of the tile) is
@@ -29,9 +31,10 @@
 // What bounds it on an H100: at the serving prefill's shape (B=4, Hq=32,
 // Hkv=4, S=4096, D=128, causal) the work is 4*B*Hq*S^2*D/2 = 5.5e11 FLOP,
 // 8.2 ms at the 67 TFLOP/s of the f32 FMA units, against ~600 MB, 0.18 ms at
-// 3.35 TB/s: compute bounds it.  The products stay on the FMA units because
-// f32 must match the reference to 2e-5, which TF32 tensor cores (about three
-// decimal digits) cannot.
+// 3.35 TB/s: compute bounds it.  One TF32 product (about three decimal
+// digits) cannot hold f32 to the reference's 2e-5, which is why this kernel
+// stayed on the FMA units; three TF32 products per product (hi.hi + hi.lo +
+// lo.hi) can, and flash_attention_sm90_f32.cu takes that route.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py
 // `flash_attention` (`_flash_kernel`) for bfloat16; float32 inputs go to the
-// FMA kernel in flash_attention.cu.  It computes what the TPU kernel
+// 3xTF32 tensor-core kernel in flash_attention_sm90_f32.cu.  It computes what the TPU kernel
 // computes: q [B,Hq,S,D] and k, v [B,Hkv,S,D]; q head h reads kv head
 // h / (Hq/Hkv); the scores Q.K^T are taken in f32 and scaled by 1/sqrt(D) in
 // f32; masked scores are set to NEG_INF = -1e30; the online softmax keeps

@@ -349,3 +349,62 @@ def test_pass1_loop_makes_no_tensor_from_host_values(monkeypatch, tmp_path):
         assert skeys.shape == (len(case.LS), case.K + 1)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind,l", [("continuous", 5.0), ("discrete", 4.0), ("distinct", 1.0),
+                                    ("sh", 1.0)])
+def test_single_l_pass1_scores_in_batches(kind, l, monkeypatch, tmp_path):
+    """The single-l pass I (``pass1_shard``) scores its shard in batches of
+    whole chunks, ``SCORE_BATCH`` elements at most: ceil(n / SCORE_BATCH)
+    calls of ``element_scores`` (the ``capscore`` kernel for continuous on
+    a card).  ``SCORE_BATCH`` is cut here to 3 chunks, so a shard of 11
+    chunks takes 4 calls, the last of 2 chunks.  Its summary equals, bit for
+    bit, that of ``pass1_step`` chunk by chunk, and the reference's
+    ``pass1_shard`` (on a one-device mesh): exactly for the hash-only kinds,
+    and for continuous, whose ``log1p`` differs between the frameworks,
+    under ``assert_lane_agrees``.  A one-rank gloo group gives the rank."""
+    import jax
+    import torch.distributed as dist
+
+    n_chunks, chunk, cap = 11, 256, case.K + 1
+    n = n_chunks * chunk
+    rng = np.random.default_rng(11)
+    keys = (rng.zipf(1.3, n) % 700).astype(np.int32)
+    keys[::37] = EMPTY
+    weights = rng.integers(1, 4, n).astype(np.float32)
+    kd, wd = torch.from_numpy(keys), torch.from_numpy(weights)
+    scorer, calls = TV.element_scores, []
+
+    def spy(*args):
+        calls.append(args[1].shape[0])
+        return scorer(*args)
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(TD, "SCORE_BATCH", 3 * chunk)
+            m.setattr(TV, "element_scores", spy)
+            got = TD.pass1_shard(kd, wd, kind=kind, l=l, salt=case.SALT, k=case.K, chunk=chunk)
+    finally:
+        dist.destroy_process_group()
+    assert calls == [3 * chunk] * 3 + [2 * chunk]
+
+    eids = TV.shard_eids(0, torch.arange(n, dtype=torch.int64))
+    carry = (torch.full((cap,), EMPTY, dtype=torch.int32), torch.full((cap,), np.inf))
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        carry = TV.pass1_step(carry, kd[sl], wd[sl], eids[sl], l, case.SALT, kind=kind, cap=cap)
+    assert torch.equal(got[0], carry[0]), "summary keys"
+    assert torch.equal(got[1], carry[1]), "summary seeds"
+
+    program = RD.make_distributed_two_pass(jax.make_mesh((1,), ("data",)), kind=kind, l=l,
+                                           salt=case.SALT, k=case.K, chunk=chunk)
+    rk, rs, _ = (np.asarray(a)[0] for a in program(jnp.asarray(keys), jnp.asarray(weights)))
+    tk, ts = (to_np(a) for a in got)
+    o = np.argsort(tk, kind="stable")
+    tk, ts = tk[o], ts[o]
+    if kind != "continuous":
+        assert np.array_equal(tk, rk) and np.array_equal(ts, rs)
+    zeros = np.zeros(cap, np.float32)
+    assert_lane_agrees(tk, ts, zeros, rk, rs, zeros, kind)

@@ -101,13 +101,14 @@ def _script(name):
 def test_fault_check_mutates_the_kernel_source_once():
     """``flash_fault_check.py`` plants each fault by replacing a piece of a
     kernel's source: ``drop_tile``, ``shift_mask`` and ``zero_out`` in both
-    the tensor-core and the FMA kernel, ``drop_lo`` in the tensor-core
-    kernel; each piece must be there exactly once."""
+    the bf16 and the f32 (3xTF32) tensor-core kernel, ``drop_lo`` in the
+    bf16 one, ``tf32_only`` in the f32 one; each piece must be there exactly
+    once."""
     ffc = _script("flash_fault_check")
-    both = {"flash_attention_sm90", "flash_attention"}
+    both = {"flash_attention_sm90", "flash_attention_sm90_f32"}
     assert {name: set(m) for name, m in ffc.MUTANTS.items()} == {
         "drop_tile": both, "shift_mask": both, "zero_out": both,
-        "drop_lo": {"flash_attention_sm90"}}
+        "drop_lo": {"flash_attention_sm90"}, "tf32_only": {"flash_attention_sm90_f32"}}
     for mutant in ffc.MUTANTS.values():
         for lib, (old, new) in mutant.items():
             source = (ROOT / f"src/repro_torch/kernels/csrc/{lib}.cu").read_text()
@@ -115,12 +116,20 @@ def test_fault_check_mutates_the_kernel_source_once():
 
 
 def test_variants_edit_the_kernel_source_once():
-    """``flash_variants.py`` builds each variant by replacing pieces of the
-    tensor-core kernel's source; each piece must be there exactly once."""
+    """``flash_variants.py`` builds each variant by replacing pieces of a
+    tensor-core kernel's source (bf16 or f32), or takes the FMA kernel as
+    it is; each piece must be there exactly once."""
     fv = _script("flash_variants")
-    source = (ROOT / "src/repro_torch/kernels/csrc/flash_attention_sm90.cu").read_text()
-    assert set(fv.VARIANTS) == {"sound", "drop_lo", "stages2", "bk64_stages4", "trap_wait"}
-    for edits in fv.VARIANTS.values():
+    assert {name: lib for name, (lib, _) in fv.VARIANTS.items()} == {
+        **dict.fromkeys(("sound", "drop_lo", "stages2", "bk64_stages4", "trap_wait"),
+                        "flash_attention_sm90"),
+        **dict.fromkeys(("f32_sound", "f32_one_term", "f32_exp2", "f32_slots1",
+                         "f32_no_split_v", "f32_no_softmax", "f32_pingpong",
+                         "f32_raw_slot"),
+                        "flash_attention_sm90_f32"),
+        "fma": "flash_attention"}
+    for lib, edits in fv.VARIANTS.values():
+        source = (ROOT / f"src/repro_torch/kernels/csrc/{lib}.cu").read_text()
         for old, new in edits:
             assert source.count(old) == 1 and new != old
 
@@ -170,3 +179,100 @@ def test_unknown_backend_raises():
     q = torch.zeros(1, 2, 128, 16)
     with pytest.raises(ValueError):
         ops.attention(q, q, q, backend="triton")
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    by bit operations: what ``cvt.rna.tf32.f32`` gives the f32 kernel."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+# the f32 kernel's kv tile (flash_attention_sm90_f32.cu's BK)
+_TF32_BK = 32
+
+
+def _tf32_attention(q, k, v, causal: bool, three_terms: bool):
+    """The f32 tensor-core kernel's numerics in plain PyTorch on the CPU: q
+    scaled by 1/sqrt(D) in f32, then every operand split into hi = tf32(x)
+    and lo = tf32(x - hi); per kv tile of 32 rows the scores
+    Q_lo.K_hi + Q_hi.K_lo + Q_hi.K_hi (in that order, f32 sums: the products
+    of two TF32 values are exact in f32), the causal mask at -1e30, the
+    online softmax in f32, P split likewise and O = O * alpha + P_lo.V_hi +
+    P_hi.V_lo + P_hi.V_hi; the output acc / l.  ``three_terms=False`` keeps
+    one TF32 product, Q_hi.K_hi and P_hi.V_hi."""
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    q_hi, q_lo = _split(q.float() * torch.tensor(1.0 / D**0.5, dtype=torch.float32))
+    k_hi, k_lo = _split(k.repeat_interleave(group, dim=1))
+    v_hi, v_lo = _split(v.repeat_interleave(group, dim=1))
+
+    def product(a_hi, a_lo, b_hi, b_lo, eq):
+        if not three_terms:
+            return torch.einsum(eq, a_hi, b_hi)
+        return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+                + torch.einsum(eq, a_hi, b_hi))
+
+    m = torch.full((B, Hq, S, 1), -1e30)
+    l = torch.zeros((B, Hq, S, 1))
+    acc = torch.zeros((B, Hq, S, D))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, _TF32_BK):
+        sl = slice(k0, k0 + _TF32_BK)
+        s = product(q_hi, q_lo, k_hi[:, :, sl], k_lo[:, :, sl], "bhqd,bhkd->bhqk")
+        if causal:
+            s = torch.where(qpos >= torch.arange(k0, min(S, k0 + _TF32_BK))[None, :], s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        p_hi, p_lo = _split(p)
+        acc = acc * alpha + product(p_hi, p_lo, v_hi[:, :, sl], v_lo[:, :, sl],
+                                    "bhqk,bhkd->bhqd")
+        m = m_new
+    return acc / l
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """``_tf32`` keeps 10 mantissa bits, rounds to nearest and a tie away
+    from zero; hi + lo of the split is exact to 2^-22 of x."""
+    sign = torch.tensor([1.0, -1.0])
+    ulp = 2.0**-10
+    assert torch.equal(_tf32(sign * (1 + ulp / 2)), sign * (1 + ulp))  # a tie, away from 0
+    assert torch.equal(_tf32(sign * (1 + ulp / 2 - 2.0**-23)), sign)
+    assert torch.equal(_tf32(sign * (1 + 3 * ulp / 4)), sign * (1 + ulp))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32))
+    hi, lo = _split(x)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(lo), lo)
+    assert float(((hi + lo - x).abs() / x.abs()).max()) <= 2.0**-21
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,q_scale,seed", [(1, 4, 2, 200, 64, 1.0, 0),
+                                                       (1, 8, 1, 128, 128, 1.0, 1),
+                                                       (2, 4, 4, 96, 32, 1.0, 2),
+                                                       (1, 4, 2, 160, 128, 4.0, 3)])
+def test_three_tf32_terms_hold_the_f32_gate_and_one_does_not(B, Hq, Hkv, S, D, q_scale, seed,
+                                                             causal):
+    """Why the f32 tensor-core kernel takes three TF32 products per product:
+    against ``attention_ref`` under the f32 gate (``FLASH_TOL["float32"]`` =
+    2e-5 as atol and rtol, the reference's own), the 3xTF32 model holds, on
+    scores of unit size and on scores 4x larger (q scaled by 4: |s| past
+    20), and one TF32 product misses it."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32))
+               for H in (Hq, Hkv, Hkv))
+    q = q * q_scale
+    want = ops.attention_ref(q, k, v, causal=causal)
+    tol = _script("chip_smoke").FLASH_TOL["float32"]
+
+    def worst(got):
+        return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+    assert worst(_tf32_attention(q, k, v, causal, three_terms=True)) <= 1.0
+    assert worst(_tf32_attention(q, k, v, causal, three_terms=False)) > 1.0

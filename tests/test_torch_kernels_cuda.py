@@ -15,8 +15,8 @@ stable argsort).  ``capscore_agg``: ``entered``, ``kb_min`` and
 launches bit-identical (a fixed scan order).
 ``capscore_multi`` and ``capscore``: every output bit-identical (the same
 IEEE operations in the same order and the same ``log1pf``).
-``flash_attention``: within 2e-5 (f32) and 2e-2 (bf16) of ``attention_ref``
-and of the kernel's plain blockwise version, the reference's own tolerances
+``flash_attention``: within 2e-5 (f32, the 3xTF32 tensor-core kernel and the
+FMA kernel it replaced) and 2e-2 (bf16) of ``attention_ref``, the reference's own tolerances
 for its flash kernel (the online softmax sums in another order; a bf16
 output may round to the other side); the tensor-core kernel's tile-boundary
 cases also within one bf16 ulp (atol 1e-4, rtol 2^-7), chip_smoke's gate at
@@ -250,6 +250,34 @@ def test_capscore_kernel_matches_plain(N, l, tau):
         assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
+def _same_bits(got, want) -> bool:
+    """Equal bit for bit, NaN where the other is NaN (as chip_smoke's)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.is_floating_point():
+        nan = got.isnan()
+        return torch.equal(nan, want.isnan()) and torch.equal(got[~nan], want[~nan])
+    return torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("N", [2048, 1 << 20, (1 << 20) + 3])
+def test_capscore_kernel_on_batches_and_unaligned_views(N, offset):
+    """The single-l pass I's batch of 2^20 elements, a ragged one and one
+    chunk, with inputs viewed one element in (off the 16-byte boundary of
+    the vector loads); every output bit-identical, NaN-aware (Delta is
+    inf / inf in a tau = inf lane for a uniform that rounds to 1.0)."""
+    _require_cuda()
+    elems, _, _ = _score_case(N + offset, 1, N + 7 + offset)
+    elems = [t[offset:] for t in elems]
+    for l, tau in ((16.0, float("inf")), (3.3, 0.5)):
+        got = cops.capscore_cuda(*elems, l, tau, SALT)
+        want = cops.capscore_ref(*elems, l, tau, SALT)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("score", "delta", "entry")):
+            assert _same_bits(g, w), name
+
+
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -315,19 +343,59 @@ def test_flash_attention_tc_kernel_at_tile_boundaries(S, D, causal, strided):
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2), (32, 4)])  # GQA groups 1, 4, 8
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", [31, 128, 129, 300])
+def test_flash_attention_tf32_kernel_matches_plain(S, D, Hq, Hkv, causal, strided):
+    """The f32 (3xTF32) tensor-core kernel at every head dim: S one short
+    of a 32-row kv tile, a whole 128-row q tile, one past it and ragged
+    across three; GQA groups 1, 4 and 8; contiguous and strided [B,S,H,D]
+    views.  Within 2e-5 of ``attention_ref``; two launches bit-identical."""
+    _require_cuda()
+    q, k, v = _flash_case(2, Hq, Hkv, S, D, torch.float32, strided, S * 100 + D + Hq)
+    before = fops.flash_attention_cuda.launches_tf32
+    got = fops.flash_attention_cuda(q, k, v, causal=causal)
+    again = fops.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fops.flash_attention_cuda.launches_tf32 == before + 2
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, Hq, S, D)
+    assert torch.equal(got, again)
+    want = fops.attention_ref(q, k, v, causal=causal)
+    tol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_flash_attention_fma_kernel_matches_plain():
+    """The FMA kernel, off the route and kept as the f32 kernel's yardstick,
+    still computes attention (2e-5 of ``attention_ref``); its launches count
+    in ``launches_fma`` and not in ``launches``."""
+    _require_cuda()
+    q, k, v = _flash_case(1, 8, 2, 200, 64, torch.float32, True, 3)
+    f = fops.flash_attention_cuda
+    before = (f.launches, f.launches_fma)
+    got = fops.flash_attention_fma(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_fma) == (before[0], before[1] + 1)
+    want = fops.attention_ref(q, k, v, causal=True)
+    tol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_cuda_routes_by_dtype(dtype):
-    """bf16 launches the tensor-core kernel and never the FMA kernel; f32
-    the reverse."""
+    """bf16 launches the bf16 tensor-core kernel, f32 the 3xTF32 one; the
+    FMA kernel is on neither route."""
     _require_cuda()
     q, k, v = _flash_case(2, 8, 2, 256, 64, dtype, True, 7)
     f = fops.flash_attention_cuda
-    before = (f.launches, f.launches_tc, f.launches_fma)
+    before = (f.launches, f.launches_tc, f.launches_tf32, f.launches_fma)
     fops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     tc = int(dtype == torch.bfloat16)
-    assert (f.launches, f.launches_tc, f.launches_fma) == (
-        before[0] + 1, before[1] + tc, before[2] + 1 - tc)
+    assert (f.launches, f.launches_tc, f.launches_tf32, f.launches_fma) == (
+        before[0] + 1, before[1] + tc, before[2] + 1 - tc, before[3])
 
 
 def test_flash_attention_cuda_refuses_what_the_kernel_does_not_take():
@@ -352,6 +420,13 @@ def test_flash_attention_cuda_refuses_what_the_kernel_does_not_take():
         fops.flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="16-byte"):
         x = torch.zeros((1, 2, 128, 68), device="cuda", dtype=torch.bfloat16)[..., :64]
+        fops.flash_attention_cuda(x, x, x)
+    # the same for f32, whose 16-byte units are 4 elements
+    with pytest.raises(ValueError, match="16-byte"):
+        x = torch.zeros((1, 2, 128, 72), device="cuda")[..., 1:65]
+        fops.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        x = torch.zeros((1, 2, 128, 66), device="cuda")[..., :64]
         fops.flash_attention_cuda(x, x, x)
 
 
