@@ -21,7 +21,12 @@ Phases, each of which fails the run if it fails:
              the device time of the kernel and of all the kernels one
              torch.sort launches); capscore_agg at the main path's chunk and
              on one key, capscore_multi and capscore at pass I's 2^20 and at
-             2048.
+             2048.  The batched entries of the bank's tick: chunksort [B, n]
+             at B = 1, 7, 256, 1024 (n 37 and 2048) and capscore_agg [B, C]
+             at B = 1, 7, 256 (per-row salts and taus, a one-key chunk, an
+             EMPTY tail), each one launch, equal to B single launches bit for
+             bit (NaN-aware) and to the plain version as above; device µs per
+             chunk at B = 256 beside B = 1, and the batch's bytes bound.
 3. main    — ``StreamStatsService(StatsConfig())`` with the service defaults
              (k=4096, ls=(1,16,256,4096), chunk=2048) observes 2^24 Zipf(1.2)
              keys over 2^22 ids in batches of 2^20, then answers one
@@ -108,6 +113,27 @@ Phases, each of which fails the run if it fails:
              stream, ``plan_hot_cold(4096)`` splits the table and
              ``hot_cold_lookup`` must equal ``embed_lookup``; then din, bst
              and mind at full size at serve_p99.
+
+9. multi-tenant serving — ``MultiTenantStats`` + ``StatsScheduler`` through
+             ``step``: run A at ``stats_serve.main``'s defaults (64 tenants,
+             ``StatsConfig(k=512, ls=(1, 8, 64), chunk=2048)``, 40 steps of 16
+             ingest slices of 2048 Zipf(1.3) keys mod 100,000, 400 Poisson
+             queries of cap T in {1..64} on all keys or ``HashBucket(8, b)``,
+             256 per batch, seed 0), every tenant held bit for bit against a
+             standalone ``StreamStatsService`` fed the same slices (every
+             query answer of its step, every state leaf at the end); run B at
+             a deployment's scale (1024 tenants at ``StatsConfig()``, a 0.54
+             GB bank, 64 steps of 256 slices, 2048 queries), five tenants
+             held so, a checkpoint at step 32 restored into a fresh bank and
+             continued (every leaf equal), one tenant ``restore_slice``d
+             into a standalone service and continued (equal).  Both: one
+             chunksort and one capscore_agg launch per stacked step (a tick,
+             or a refresh's padded flush), every ``tick`` and query dispatch
+             under ``torch.cuda.set_sync_debug_mode("error")``; elements/s,
+             queries/s, p50/p99 latency, tick ms by CUDA events, device busy
+             share over 8 profiled steps after the measured ones,
+             ``resident_bytes``, ``max_memory_allocated``, with the card's
+             name and power limit.
 
 The results and the profile are also written as JSON to ``chiprun_out/``
 in the checkout (git-ignored).
@@ -419,6 +445,142 @@ def check_capscore_agg(device, rng) -> tuple[dict, dict]:
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": None,
             "device_us": dev_us, "one_key_device_us": one_us}, dev_us
+
+
+# the batched entries' batch sizes: B = 256 is a bank tick of run B
+SORT_ROWS_BATCHES = (1, 7, 256, 1024)
+AGG_BATCHES = (1, 7, 256)
+
+
+def check_chunksort_rows(device, rng) -> dict:
+    """The batched chunk sort ([B, n], one CTA per row) against B single
+    launches and the plain version, bit for bit; device µs per chunk at
+    B = 256 beside B = 1, and the batch's bytes bound."""
+    import numpy as np
+    import torch
+    from repro_torch.data.streams import zipf_keys
+    from repro_torch.kernels.chunksort import ops
+
+    n_cases = 0
+    for B in SORT_ROWS_BATCHES:
+        for n in (37, 2048):
+            keys = zipf_keys(rng, B * n, 1.2, 1 << 22).reshape(B, n).astype(np.int32)
+            keys[B // 2, :] = 42                    # one key filling a row
+            keys[-1, -max(1, n // 3):] = EMPTY      # an EMPTY tail
+            k = torch.from_numpy(keys).to(device)
+            before = ops.sort_with_perm_cuda.launches
+            got = ops.sort_with_perm_cuda(k)
+            if ops.sort_with_perm_cuda.launches != before + 1:
+                raise AssertionError(f"chunksort rows B={B}: not one launch")
+            want = ops.sort_with_perm_ref(k)
+            rows = [ops.sort_with_perm_cuda(k[b]) for b in range(B)]
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"chunksort rows differ from the plain version: B={B} n={n}")
+            for b, (ks, perm) in enumerate(rows):
+                if not (torch.equal(got[0][b], ks) and torch.equal(got[1][b], perm)):
+                    raise AssertionError(f"chunksort rows: row {b} of B={B} n={n} differs "
+                                         "from its single launch")
+            n_cases += 1
+    log(f"chunksort rows: bit-identical to B single launches and torch.sort(stable=True) "
+        f"on {n_cases} batches (B {SORT_ROWS_BATCHES}, n 37 and 2048)")
+    out = {}
+    for B in (1, 256):
+        k = torch.from_numpy(zipf_keys(rng, B * 2048, 1.2, 1 << 22).reshape(B, 2048)
+                             .astype(np.int32)).to(device)
+        us = _device_profile(lambda: ops.sort_with_perm_cuda(k), 20,
+                             "sort_chunk")["kernel_device_us_per_launch"]
+        b, by = bound_ms(16 * B * 2048, 0)
+        out[f"rows_b{B}_device_us_per_chunk"] = us / B
+        out[f"rows_b{B}_bound_ms"] = b
+    log(f"chunksort rows n=2048: {out['rows_b1_device_us_per_chunk']:.4f} us device per "
+        f"chunk at B=1, {out['rows_b256_device_us_per_chunk']:.4f} at B=256; bytes bound of "
+        f"the B=256 batch {out['rows_b256_bound_ms']:.6f} ms")
+    return out
+
+
+def _agg_batch_inputs(device, rng, B: int, C: int, L: int, edges: bool = True):
+    """B key-sorted chunks of one batch: Zipf rows, with ``edges`` a one-key
+    row and an EMPTY-tailed row; per-row salts and taus mixing inf,
+    tau*l > 1 and tau*l < 1."""
+    import numpy as np
+    import torch
+    from repro_torch.core.segments import chunk_order
+    from repro_torch.data.streams import zipf_keys
+
+    keys = zipf_keys(rng, B * C, 1.2, 1 << 22).reshape(B, C).astype(np.int32)
+    if edges:
+        keys[B // 2, :] = 42
+        keys[-1, -max(1, C // 3):] = EMPTY
+    eids = rng.integers(0, 2**31 - 1, (B, C)).astype(np.int32)
+    ws = np.ones((B, C), np.float32)
+    ws[:, : C // 4] = rng.random((B, C // 4)).astype(np.float32) * 3 + 0.05
+    order = chunk_order(*(torch.from_numpy(a).to(device) for a in (keys, eids, ws)))
+    ls = np.resize(np.array([1.0, 16.0, 256.0, 4096.0, 3.0, 64.0, 1024.0, 8.0], np.float32), L)
+    taus = rng.choice(np.array([np.inf, 0.5, 1e-3, 2e-3, 0.9, 5e-4, 0.2], np.float32), (B, L))
+    salts = rng.integers(0, 2**32, B).astype(np.uint32)
+    salts[0] = SALT
+    return (order.ks, order.eids, order.ws, order.seg, torch.from_numpy(ls).to(device),
+            torch.from_numpy(taus).to(device),
+            torch.from_numpy(salts.view(np.int32)).to(device)), salts
+
+
+def check_capscore_agg_batch(device, rng) -> dict:
+    """The batched capscore_agg (grid (B, 1 + helpers)) against B single
+    launches (NaN-aware, bit for bit) and the plain version (entered,
+    kb_min, min_score exact; sums within rtol 1e-5); device µs per chunk at
+    B = 256 beside B = 1, and the batch's bytes bound."""
+    import torch
+    from repro_torch.kernels.capscore import ops
+
+    err, n_cases = 0.0, 0
+    for B in AGG_BATCHES:
+        for C, L in ((2048, 4), (37, 1), (2048, 8)):
+            args, salts = _agg_batch_inputs(device, rng, B, C, L)
+            before = ops.capscore_agg_cuda.launches
+            got = ops.capscore_agg_cuda(*args)
+            if ops.capscore_agg_cuda.launches != before + 1:
+                raise AssertionError(f"capscore_agg batch B={B}: not one launch")
+            ks, eids, ws, seg, ls, taus, _ = args
+            for b in range(B):
+                one = ops.capscore_agg_cuda(ks[b], eids[b], ws[b], seg[b], ls, taus[b],
+                                            int(salts[b]))
+                for name, g, w in zip(("w_total", "entered", "contrib", "kb_min",
+                                       "min_score"), got, one):
+                    if not _same_bits(g[b], w):
+                        raise AssertionError(f"capscore_agg batch: {name} of row {b} "
+                                             f"(B={B} C={C} L={L}) differs from its single launch")
+            want = ops.capscore_agg_ref(*args)
+            torch.cuda.synchronize()
+            for i, name in ((1, "entered"), (3, "kb_min"), (4, "min_score")):
+                if not torch.equal(got[i], want[i]):
+                    raise AssertionError(f"capscore_agg batch {name} differs from the plain "
+                                         f"version (B={B} C={C} L={L})")
+            for i, name in ((0, "w_total"), (2, "contrib")):
+                if not torch.allclose(got[i], want[i], rtol=1e-5, atol=0):
+                    raise AssertionError(f"capscore_agg batch {name} beyond rtol 1e-5 "
+                                         f"(B={B} C={C} L={L})")
+            err = max(err, _max_abs_err(got, want))
+            n_cases += 1
+    log(f"capscore_agg batch: bit-identical to B single launches (NaN-aware) and to the "
+        f"plain version (sums within rtol 1e-5) on {n_cases} batches (B {AGG_BATCHES}, "
+        f"mixed salts and taus, a one-key chunk, an EMPTY tail); max abs err {err:.3e}")
+    out = {"batch_max_abs_err": err}
+    for B in (1, 256):  # the main path's Zipf chunks
+        args, _ = _agg_batch_inputs(device, rng, B, 2048, 4, edges=False)
+        us = _device_profile(lambda: ops.capscore_agg_cuda(*args), 20,
+                             "capscore_agg_kernel")["kernel_device_us_per_launch"]
+        C, L = 2048, 4
+        b, by = bound_ms(B * (16 * C + 4 * L + 4 + 4 * C + 13 * L * C) + 4 * L,
+                         B * C * (70 + 10 * L))
+        out[f"batch_b{B}_device_us_per_chunk"] = us / B
+        out[f"batch_b{B}_bound_ms"] = b
+        out[f"batch_b{B}_bound_by"] = by
+    log(f"capscore_agg batch C=2048 L=4: {out['batch_b1_device_us_per_chunk']:.4f} us "
+        f"device per chunk at B=1, {out['batch_b256_device_us_per_chunk']:.4f} at B=256; "
+        f"bound of the B=256 batch {out['batch_b256_bound_ms']:.6f} ms "
+        f"({out['batch_b256_bound_by']})")
+    return out
 
 
 def _score_inputs(device, rng, N: int, L: int, offset: int = 0):
@@ -2063,6 +2225,383 @@ def run_recsys_serving(seed: int, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: multi-tenant serving (TenantBank, MultiTenantStats, StatsScheduler)
+# ---------------------------------------------------------------------------
+
+SERVE_CAPS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0)
+# run A: launch/stats_serve.main's defaults (the reference's documented
+# setting); run B: a deployment's scale, StatsConfig() defaults for 1024
+# tenants (a 0.54 GB resident bank)
+SERVE_RUN_A = dict(tenants=64, k=512, ls=(1.0, 8.0, 64.0), chunk=2048, steps=40,
+                   ingest_per_step=16, stream_batch=2048, requests=400, max_batch=256)
+SERVE_RUN_B = dict(tenants=1024, k=4096, ls=(1.0, 16.0, 256.0, 4096.0), chunk=2048,
+                   steps=64, ingest_per_step=256, stream_batch=2048, requests=2048,
+                   max_batch=256)
+SERVE_PROFILE_STEPS = 8  # a profiled window after the measured steps
+SERVE_CHECKED = 5        # run B: the tenant with the most elements + 4 drawn
+
+
+def _serve_traffic(run: dict, seed: int, steps: int):
+    """The submissions of ``stats_serve.main``'s synthetic workload, drawn in
+    its order from ``default_rng(seed)``: per step the ingest slices
+    (tenant, Zipf(1.3) keys mod 100,000) and the queries (tenant, cap T,
+    segment: all keys or ``HashBucket(8, b)``), Poisson arrivals."""
+    import numpy as np
+    from repro_torch.core import freqfns
+    from repro_torch.core.segments import HashBucket
+
+    rng = np.random.default_rng(seed)
+    T, rate = run["tenants"], run["requests"] / run["steps"]
+    segments = [None] + [HashBucket(8, b) for b in range(8)]
+    arrivals = list(rng.poisson(rate, size=run["steps"]))
+    out, n_req = [], 0
+    for step in range(steps):
+        ingest = [(int(t), (rng.zipf(1.3, size=run["stream_batch"]) % 100_000).astype(np.int64))
+                  for t in rng.choice(T, size=min(run["ingest_per_step"], T), replace=False)]
+        # the steps past the measured ones (the profiled window) keep the
+        # same arrival rate, past the request budget
+        n = int(arrivals[step]) if step < run["steps"] else int(rng.poisson(rate))
+        queries = []
+        for _ in range(n):
+            if step < run["steps"] and n_req >= run["requests"]:
+                break
+            queries.append((int(rng.integers(T)), freqfns.cap(float(rng.choice(SERVE_CAPS))),
+                            segments[int(rng.integers(len(segments)))]))
+            n_req += 1
+        out.append((ingest, queries))
+    return out
+
+
+def _hold_tenants(cfg, tenants, admitted, specs, records, svc) -> tuple[int, int, float]:
+    """Each tenant of ``tenants`` against a standalone service fed the same
+    admitted slices in the same steps: every query answer (estimate,
+    stderr, CI, lane) of the step that completed it, asked as the same
+    batch, and at the end every state leaf (tables, taus, summaries,
+    positions, remainders), bit for bit.  Returns the answers held, and the
+    elements the standalone services observed with the seconds their
+    ``observe`` calls took (each between device syncs): the per-tenant
+    loop that the bank replaces."""
+    import torch
+    from repro_torch.stats.query import Query
+    from repro_torch.stats.service import StreamStatsService
+
+    by_tenant = {t: [] for t in tenants}
+    for step, t, keys in admitted:
+        if t in by_tenant:
+            by_tenant[t].append((step, keys))
+    done = {}
+    for rid in sorted(records):
+        rec = records[rid]
+        if rec.tenant in by_tenant:
+            done.setdefault((rec.tenant, rec.done_step), []).append(rid)
+    held, loop_elements, loop_s = 0, 0, 0.0
+
+    def observe(lone, keys):
+        nonlocal loop_elements, loop_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lone.observe(keys)
+        torch.cuda.synchronize()
+        loop_s += time.perf_counter() - t0
+        loop_elements += len(keys)
+
+    for t in tenants:
+        lone = StreamStatsService(cfg)
+        slices = by_tenant[t]
+        i = 0
+        for step in sorted({s for tt, s in done if tt == t}):
+            while i < len(slices) and slices[i][0] <= step:
+                observe(lone, slices[i][1])
+                i += 1
+            rids = done[(t, step)]
+            got = lone.query_batch([Query(specs[r][1], specs[r][2]) for r in rids])
+            for j, r in enumerate(rids):
+                rec = records[r]
+                want = (float(got.estimates[j]), float(got.stderr[j]), float(got.ci_low[j]),
+                        float(got.ci_high[j]), float(got.lanes[j]))
+                if (rec.estimate, rec.stderr, rec.ci_low, rec.ci_high, rec.lane) != want:
+                    raise AssertionError(f"phase 9: tenant {t} query {r} (step {step}) "
+                                         f"{(rec.estimate, rec.stderr, rec.lane)} differs "
+                                         f"from its standalone service's {want}")
+                held += 1
+        for _, keys in slices[i:]:
+            observe(lone, keys)
+        want = lone._sampler.state_dict()
+        got = svc.tenant_state_dict(t)
+        for name in want:
+            if not (got[name].dtype == want[name].dtype and torch.equal(got[name], want[name])):
+                raise AssertionError(f"phase 9: tenant {t} leaf {name} differs from its "
+                                     "standalone service's")
+    return held, loop_elements, loop_s
+
+
+def _serve_run(name: str, run: dict, seed: int, ckpt_step: int | None = None) -> dict:
+    """One run of the multi-tenant server through ``StatsScheduler.step``:
+    the measured steps, then a profiled window, then ``drain``; the launch,
+    sync and bit-identity gates (and, with ``ckpt_step``, the checkpoint
+    resume and the ``restore_slice`` handoff)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import manager
+    from repro_torch.core import incremental
+    from repro_torch.kernels.capscore import ops as cops
+    from repro_torch.kernels.chunksort import ops as sops
+    from repro_torch.stats import query
+    from repro_torch.stats.scheduler import ServeConfig, StatsScheduler
+    from repro_torch.stats.service import MultiTenantStats, StatsConfig, StreamStatsService
+
+    T, steps = run["tenants"], run["steps"]
+    cfg = StatsConfig(k=run["k"], ls=run["ls"], chunk=run["chunk"])
+    t0 = time.perf_counter()
+    traffic = _serve_traffic(run, seed, steps + SERVE_PROFILE_STEPS)
+    t_traffic = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    svc = MultiTenantStats(cfg, n_tenants=T)
+    sched = StatsScheduler(svc, ServeConfig(max_ingest_per_step=run["ingest_per_step"],
+                                            max_queries_per_step=run["max_batch"]))
+    bank = svc._bank
+    admitted, specs, records = [], {}, {}
+    counts = {"ticks": 0, "stacked_steps": 0, "async_batches": 0, "refreshes": 0,
+              "refresh_s": 0.0}
+    tick_events = []
+
+    observe = svc.observe
+
+    def logged_observe(tenant, keys, weights=None):
+        admitted.append((sched.n_steps, tenant, keys))
+        observe(tenant, keys, weights)
+
+    bank_tick = bank.tick
+
+    def checked_tick():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in a tick fails the run
+        try:
+            start.record()
+            n = bank_tick()
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if n:
+            counts["ticks"] += 1
+            tick_events.append((start, end, n))
+        return n
+
+    update_bank = incremental.update_bank
+
+    def counted_update_bank(*a, **kw):
+        counts["stacked_steps"] += 1  # a tick's, or a refresh's padded flush
+        return update_bank(*a, **kw)
+
+    refresh = svc.refresh
+
+    def timed_refresh(tenants=None):
+        # host time of the snapshot: the drain (the step's tick, when its
+        # tenants have full chunks queued), the rows' copy off the card and
+        # the engine's build
+        t = time.perf_counter()
+        engine = refresh(tenants)
+        counts["refresh_s"] += time.perf_counter() - t
+        counts["refreshes"] += 1
+        return engine
+
+    query_batch_async = query.QueryEngine.query_batch_async
+
+    def checked_query_batch_async(engine, queries):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            counts["async_batches"] += 1
+            return query_batch_async(engine, queries)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    svc.observe = logged_observe
+    svc.refresh = timed_refresh
+    bank.tick = checked_tick
+    incremental.update_bank = counted_update_bank
+    query.QueryEngine.query_batch_async = checked_query_batch_async
+    ckpt_dir = ROOT / "build" / f"phase9_{name}_ckpt"
+    t_ckpt, latencies, prof_out = 0.0, [], {}
+    try:
+        def serve_step(ingest, queries):
+            for t, keys in ingest:
+                sched.submit_ingest(t, keys)
+            for t, fn, seg in queries:
+                specs[sched.submit_query(t, fn, seg)] = (t, fn, seg)
+            ids = sched.step()
+            for rid in ids:
+                records[rid] = sched.pop_result(rid)
+            return ids
+
+        sops.sort_with_perm_cuda.launches = 0
+        cops.capscore_agg_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(steps):
+            for rid in serve_step(*traffic[step]):
+                latencies.append(records[rid].latency_s)
+            if ckpt_step is not None and step + 1 == ckpt_step:
+                tc = time.perf_counter()
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+                svc.save_checkpoint(ckpt_dir, ckpt_step)
+                t_ckpt = time.perf_counter() - tc
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - t_ckpt
+        n_elements, n_queries = sched.n_elements_ingested, sched.n_queries_answered
+        refresh_ms = counts["refresh_s"] * 1e3 / steps
+        n_refresh = counts["refreshes"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tp = time.perf_counter()
+            for step in range(steps, steps + SERVE_PROFILE_STEPS):
+                serve_step(*traffic[step])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - tp
+        busy_us, launches_n, rows = 0.0, 0, []
+        for e in prof.key_averages():
+            if "CUDA" in str(getattr(e, "device_type", "")):
+                dev_us = getattr(e, "self_device_time_total", None)
+                dev_us = dev_us if dev_us is not None else getattr(e, "self_cuda_time_total", 0)
+                busy_us += dev_us
+                launches_n += e.count
+                rows.append({"name": e.key[:100], "launches_per_step": e.count / SERVE_PROFILE_STEPS,
+                             "device_ms_per_step": dev_us * 1e-3 / SERVE_PROFILE_STEPS})
+        rows.sort(key=lambda r: -r["device_ms_per_step"])
+        prof_out = {"steps": SERVE_PROFILE_STEPS, "wall_ms_per_step": prof_wall * 1e3 / SERVE_PROFILE_STEPS,
+                    "device_busy_ms_per_step": busy_us * 1e-3 / SERVE_PROFILE_STEPS,
+                    "device_busy_share": busy_us * 1e-6 / prof_wall,
+                    "kernel_launches_per_step": launches_n / SERVE_PROFILE_STEPS, "top": rows[:8]}
+        for rid in sched.drain():
+            records[rid] = sched.pop_result(rid)
+        torch.cuda.synchronize()
+        launches = {"chunksort": sops.sort_with_perm_cuda.launches,
+                    "capscore_agg": cops.capscore_agg_cuda.launches}
+    finally:
+        incremental.update_bank = update_bank
+        query.QueryEngine.query_batch_async = query_batch_async
+        svc.observe = observe
+        svc.refresh = refresh
+        bank.tick = bank_tick
+    tick_ms = np.array([a.elapsed_time(b) for a, b, _ in tick_events])
+    active = np.array([n for _, _, n in tick_events])
+    lat_ms = np.sort(np.asarray(latencies)) * 1e3
+    out = {"tenants": T, "k": cfg.k, "ls": list(cfg.ls), "chunk": cfg.chunk, "steps": steps,
+           "traffic_setup_s": t_traffic, "wall_s": wall, "elements": n_elements,
+           "elements_per_s": n_elements / wall, "queries": n_queries,
+           "queries_per_s": n_queries / wall,
+           "query_p50_ms": float(np.percentile(lat_ms, 50)),
+           "query_p99_ms": float(np.percentile(lat_ms, 99)),
+           "ticks": counts["ticks"], "stacked_steps": counts["stacked_steps"],
+           "mean_active_tenants_per_tick": float(active.mean()),
+           "tick_ms_mean": float(tick_ms.mean()), "tick_ms_median": float(np.median(tick_ms)),
+           "tick_ms_max": float(tick_ms.max()), "refreshes": n_refresh,
+           "refresh_host_ms_per_step": refresh_ms, "launches": launches,
+           "launches_per_stacked_step": {k: v / counts["stacked_steps"]
+                                         for k, v in launches.items()},
+           "async_query_batches": counts["async_batches"], "profile": prof_out,
+           "resident_bytes": svc.resident_bytes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "checkpoint_save_s": t_ckpt}
+    # one chunksort and one capscore_agg launch per stacked step, for all of
+    # its tenants; every tick and every query dispatch ran under
+    # sync_debug_mode("error")
+    if not counts["ticks"] or any(v != counts["stacked_steps"] for v in launches.values()):
+        raise AssertionError(f"phase 9 {name}: launches {launches} for {counts['ticks']} "
+                             f"ticks and {counts['stacked_steps']} stacked steps")
+    if not counts["async_batches"]:
+        raise AssertionError(f"phase 9 {name}: no query batch was dispatched")
+
+    # bit-identity against standalone services
+    t0 = time.perf_counter()
+    n_el = {}
+    for _, t, keys in admitted:
+        n_el[t] = n_el.get(t, 0) + len(keys)
+    if name == "A":
+        checked = list(range(T))
+    else:
+        top = max(n_el, key=lambda t: (n_el[t], -t))
+        rest = [int(t) for t in np.random.default_rng(seed).permutation(T) if t != top]
+        checked = [top] + rest[:SERVE_CHECKED - 1]
+    out["checked_tenants"] = checked
+    out["answers_held"], loop_elements, loop_s = _hold_tenants(cfg, checked, admitted,
+                                                               specs, records, svc)
+    out["per_tenant_loop_elements_per_s"] = loop_elements / loop_s
+    out["standalone_check_s"] = time.perf_counter() - t0
+
+    if ckpt_step is not None:
+        t0 = time.perf_counter()
+        later = [(s, t, keys) for s, t, keys in admitted if s > ckpt_step]
+        resumed = MultiTenantStats(cfg, n_tenants=T)
+        if resumed.restore_checkpoint(ckpt_dir) != ckpt_step:
+            raise AssertionError("phase 9: restored the wrong step")
+        step_of = None
+        for s, t, keys in later:
+            if step_of is not None and s != step_of:
+                resumed.tick()
+            resumed.observe(t, keys)
+            step_of = s
+        got, want = resumed.state_dict(), svc.state_dict()
+        for leaf in want:
+            if not torch.equal(got[leaf], want[leaf]):
+                raise AssertionError(f"phase 9: the resumed bank's {leaf} differs")
+        handoff = checked[0]
+        lone = StreamStatsService(cfg)
+        lone.load_state_dict(manager.restore_slice(ckpt_dir, ckpt_step,
+                                                   lone._sampler.state_dict(), handoff))
+        for s, t, keys in later:
+            if t == handoff:
+                lone.observe(keys)
+        want_t = svc.tenant_state_dict(handoff)
+        for leaf, x in lone._sampler.state_dict().items():
+            if not torch.equal(x, want_t[leaf]):
+                raise AssertionError(f"phase 9: tenant {handoff} handed off by restore_slice: "
+                                     f"{leaf} differs")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        out["checkpoint_check_s"] = time.perf_counter() - t0
+        out["handoff_tenant"] = handoff
+    return out
+
+
+def run_multitenant_serving(seed: int) -> dict:
+    """Phase 9: runs A and B (module docstring)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    out = {"card": smi}
+    for name, run, ckpt in (("A", SERVE_RUN_A, None), ("B", SERVE_RUN_B, 32)):
+        t0 = time.perf_counter()
+        r = out[name] = _serve_run(name, run, seed, ckpt_step=ckpt)
+        r["phase_s"] = time.perf_counter() - t0
+        log(f"phase 9 run {name} ({r['tenants']} tenants, k={r['k']}, ls={r['ls']}, "
+            f"chunk {r['chunk']}, {r['steps']} steps; card {smi}): {r['elements']} elements "
+            f"in {r['wall_s']:.3f} s = {r['elements_per_s']:.6g} elements/s, {r['queries']} "
+            f"queries = {r['queries_per_s']:.6g} queries/s, latency p50 "
+            f"{r['query_p50_ms']:.3f} ms p99 {r['query_p99_ms']:.3f} ms; {r['ticks']} ticks "
+            f"({r['mean_active_tenants_per_tick']:.1f} tenants each), tick {r['tick_ms_mean']:.4f} "
+            f"ms mean / {r['tick_ms_median']:.4f} median by CUDA events; {r['refreshes']} "
+            f"refreshes, {r['refresh_host_ms_per_step']:.3f} host ms per step (the drain's "
+            f"tick included); launches "
+            f"{r['launches']} for {r['stacked_steps']} stacked steps; device busy "
+            f"{100 * r['profile']['device_busy_share']:.2f}% over {SERVE_PROFILE_STEPS} profiled "
+            f"steps ({r['profile']['wall_ms_per_step']:.3f} ms per step, "
+            f"{r['profile']['kernel_launches_per_step']:.1f} kernel launches); resident "
+            f"{r['resident_bytes']} B, max_memory_allocated {r['max_memory_allocated']} B; "
+            f"{len(r['checked_tenants'])} tenants and {r['answers_held']} answers bit-identical "
+            f"to standalone services, whose observe calls (the per-tenant loop) ingested "
+            f"{r['per_tenant_loop_elements_per_s']:.6g} elements/s; whole run "
+            f"{r['phase_s']:.1f} s")
+        for row in r["profile"]["top"][:6]:
+            log(f"  {row['device_ms_per_step']:9.4f} ms x{row['launches_per_step']:7.1f} per step  "
+                f"{row['name']}")
+        if "handoff_tenant" in r:
+            log(f"phase 9 run {name}: checkpoint at step 32 ({r['checkpoint_save_s']:.2f} s to "
+                f"save) restored into a fresh bank, continued: every leaf equal; tenant "
+                f"{r['handoff_tenant']} restore_slice'd into a standalone service, continued: equal")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2105,10 +2644,12 @@ def main(argv=None) -> int:
         return out
 
     kernels = [timed("2 chunksort", check_chunksort, device, rng)]
+    kernels[0].update(timed("2 chunksort rows", check_chunksort_rows, device, rng))
     device_us = {}
     for check in (check_capscore_agg, check_capscore_multi, check_capscore):
         entry, device_us[entry["name"]] = timed(f"2 {check.__name__[6:]}", check, device, rng)
         kernels.append(entry)
+    kernels[1].update(timed("2 capscore_agg batch", check_capscore_agg_batch, device, rng))
     flash, flash_prefill = timed("2c", check_flash_attention, device, args.seed)
     kernels.extend(flash)
     segsum, segsum_serving = timed("2d segment_sum", check_segment_sum, device, rng)
@@ -2123,6 +2664,7 @@ def main(argv=None) -> int:
     distributed = timed("6", run_distributed, args.seed, 1 << 24, 1 << 20)
     lm = timed("7", run_lm_serving, args.seed, device)
     recsys = timed("8", run_recsys_serving, args.seed, device)
+    serving = timed("9", run_multitenant_serving, args.seed)
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     # segment_sum is on no path: the two-tower pooling, its one user, runs
     # the gather-fused embedding_bag kernel, and phase 8 checks that it
@@ -2135,6 +2677,11 @@ def main(argv=None) -> int:
                 "segment_sum": 0}
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    # phase 9's own path: the bank's launches per stacked step (a tick, or a
+    # refresh's padded flush), the same for both runs
+    for k in kernels[:2]:
+        k["bank_launches_per_tick"] = serving["B"]["launches_per_stacked_step"][k["name"]]
+        k["launches_phase9"] = {run: serving[run]["launches"][k["name"]] for run in ("A", "B")}
     idle = [k["name"] for k in kernels if not k["launches"] and k["name"] != "segment_sum"]
     if idle:
         raise AssertionError(f"kernels launched no time on their paths: {idle}")
@@ -2146,6 +2693,7 @@ def main(argv=None) -> int:
          "segment_sum_serving_shapes": segsum_serving,
          "embedding_bag_serving_shapes": bag_serving, "main_path": main_path,
          "distributed": distributed, "lm_serving": lm, "recsys_serving": recsys,
+         "multitenant_serving": serving,
          "seconds": time.perf_counter() - t_start, "phase_seconds": phase_s},
         indent=1))
     (OUT_DIR / "profile_chunk_step.json").write_text(json.dumps(profile, indent=1))

@@ -11,6 +11,12 @@ hand-written kernels; nothing in the loop synchronises with the device.
 
 The update functions never modify their input state, so a state stays
 usable after it was passed in (the flush path relies on that).
+
+A ``TenantBank`` stacks N such samplers ([T, L, ...] leaves).  Each tick
+advances every tenant with a full chunk queued by one chunk: the tenants'
+rows are gathered, run through the same stages as A x L rows -- one
+``chunksort`` and one ``capscore_agg`` launch for all of them -- and
+written back; the other tenants keep every bit.
 """
 from __future__ import annotations
 
@@ -81,6 +87,17 @@ class SamplerSpec:
         ``pos`` (int32 wrap-around, as the reference's int32 positions)."""
         base = torch.arange(pos, pos + self.chunk, dtype=torch.int64,
                             device=device) & 0xFFFFFFFF
+        return self._ids(base)
+
+    def eids_rows(self, pos: torch.Tensor) -> torch.Tensor:
+        """int32 element ids [A, chunk] of A chunks starting at the int64
+        stream positions ``pos`` [A] (a bank's tenants, each its own
+        stream): row a equals ``eids(pos[a])``."""
+        base = (pos[:, None] + torch.arange(self.chunk, dtype=torch.int64,
+                                            device=pos.device)) & 0xFFFFFFFF
+        return self._ids(base)
+
+    def _ids(self, base):
         if self.host_id is None:
             return VZ.to_int32(base)
         return VZ.shard_eids(self.host_id, base)
@@ -416,3 +433,446 @@ class MultiSampler:
                                    ("rem_keys", "rem_weights", "rem_len")})
         self._n_real = (int(d["n_real"]) if "n_real" in d
                         else self.state.n_seen + len(self._rem.keys))
+
+
+# ---------------------------------------------------------------------------
+# Stacked tenant banks: N resident multi-l samplers (tenant x l-grid) as one
+# set of [T, L, ...] leaves, every active tenant advanced by one stacked step
+# per ingest tick
+# ---------------------------------------------------------------------------
+
+
+def init_bank_state(ls, *, n_tenants, k, chunk=2048, salts=0, host_id=None,
+                    evict_every=1, device=None) -> tuple[SamplerState, SamplerSpec]:
+    """A bank of ``n_tenants`` independent multi-l samplers.
+
+    Device leaves gain a leading tenant axis: table leaves [T, L, capacity],
+    tau/step/overflow [T, L], summaries [T, L, k+1].  ``n_seen`` (each
+    tenant's own stream position) and ``salt`` (``salts``: one int shared by
+    all tenants or one per tenant) are host arrays [T], int64 and uint32.
+    ``l`` stays [L]: the grid is shared bank-wide.
+    """
+    if n_tenants < 1:
+        raise ValueError(f"n_tenants must be >= 1, got {n_tenants}")
+    one, spec = init_multi_state(ls, k=k, chunk=chunk, host_id=host_id,
+                                 evict_every=evict_every, device=device)
+    T = int(n_tenants)
+    stack = lambda x: x.expand((T,) + x.shape).clone()
+    state = SamplerState(
+        table=VZ.TableState(*(stack(x) for x in one.table)),
+        n_seen=np.zeros(T, np.int64), l=one.l,
+        salt=np.broadcast_to(np.asarray(salts, np.int64) & 0xFFFFFFFF,
+                             (T,)).astype(np.uint32),
+        bk_keys=stack(one.bk_keys), bk_seeds=stack(one.bk_seeds))
+    return state, spec
+
+
+_STAGED_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+                  np.dtype(np.float32): torch.float32}
+
+
+def _stage(device, *arrays):
+    """Host arrays (each a whole number of 32-bit words; 64-bit ones first)
+    packed into one buffer and sent to ``device`` in ONE copy -- on a card a
+    non-blocking copy from pinned memory, which never waits for the device.
+    Returns the device views, with the arrays' dtypes and shapes."""
+    words = [np.ascontiguousarray(a).reshape(-1).view(np.int32) for a in arrays]
+    buf = torch.empty(sum(len(w) for w in words), dtype=torch.int32,
+                      pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    off = 0
+    for w in words:
+        host[off:off + len(w)] = w
+        off += len(w)
+    dev = buf.to(device, non_blocking=True)
+    out, off = [], 0
+    for a, w in zip(arrays, words):
+        out.append(dev[off:off + len(w)].view(_STAGED_DTYPES[a.dtype]).view(a.shape))
+        off += len(w)
+    return out
+
+
+def _bank_chunk_step(table, bkk, bks, pos, ck, cw, l, salts, spec: SamplerSpec,
+                     n_evict: int):
+    """One chunk for each of A tenants, their L lanes as A x L rows.
+
+    ``table`` leaves are the tenants' rows [A*L, ...] (tenant-major),
+    ``bkk``/``bks`` their key-sorted summary carries, ``pos`` [A] int64 their
+    stream positions, ``ck``/``cw`` [A, chunk], ``salts`` [A] int32 bits.
+    The first ``n_evict`` tenants are due for eviction.  The stages of
+    ``_multi_chunk_step`` in the same order, each row through the same f32
+    operations as its lane of a standalone sampler: ONE chunksort launch for
+    the A chunks, ONE capscore_agg launch with each chunk's salt and taus.
+    """
+    A, C = ck.shape
+    L = l.shape[0]
+    R = A * L
+    order = chunk_order(ck, spec.eids_rows(pos), cw)
+    w_total, entered, contrib, kb_min, min_score = capscore_agg(
+        order.ks, order.eids, order.ws, order.seg, l, table.tau.view(A, L), salts)
+    per_row = lambda x: x[:, None].expand(A, L, C).reshape(R, C)
+    agg = VZ.ChunkAgg(ukeys=per_row(order.ukeys), w_total=per_row(w_total),
+                      entered=entered.view(R, C), contrib=contrib.view(R, C),
+                      kb=kb_min.view(R, C), min_score=min_score.view(R, C))
+    table = VZ.fixed_k_merge(table, agg)
+    if n_evict:
+        D = n_evict * L
+        due = VZ.TableState(*(x[:D] for x in table))
+        ev = VZ.evict_table(due, k=spec.k, l=l.repeat(n_evict),
+                            salt=salts[:n_evict, None].expand(n_evict, L).reshape(D))
+        if D == R:
+            table = ev
+        else:  # the merged rows are this step's own tensors
+            for new, old in zip(ev[:5], table[:5]):
+                old[:D].copy_(new)
+    bkk, bks = VZ.pass1_fold_keysorted(bkk, bks, agg.ukeys, agg.min_score,
+                                       bkk.shape[-1])
+    return table, bkk, bks
+
+
+def update_bank(state: SamplerState, keys, weights, tenants, spec: SamplerSpec,
+                *, n_evict: int) -> SamplerState:
+    """Advance tenants ``tenants`` (distinct ids, host [A]) by one chunk each:
+    ``keys``/``weights`` host [A, chunk]; the first ``n_evict`` of them are
+    due for eviction (the caller knows each tenant's round).  Keys, weights,
+    tenant ids, positions and salts go up in one staged copy; the tenants'
+    rows are gathered, stepped and written back into ``state``'s leaves, in
+    place (the reference donates them).  Nothing here waits for the device.
+    """
+    tenants = np.asarray(tenants, np.int64)
+    A, L = len(tenants), state.l.shape[0]
+    R = A * L
+    dev = state.l.device
+    idx, pos, ck, salts, cw = _stage(
+        dev, tenants, state.n_seen[tenants], np.asarray(keys, np.int32),
+        state.salt[tenants].view(np.int32), np.asarray(weights, np.float32))
+    rows = lambda x: x.index_select(0, idx).reshape((R,) + x.shape[2:])
+    table = VZ.TableState(*(rows(x) for x in state.table))
+    bkk, bks = VZ.summary_to_keysorted(rows(state.bk_keys), rows(state.bk_seeds))
+    table, bkk, bks = _bank_chunk_step(table, bkk, bks, pos, ck, cw, state.l,
+                                       salts, spec, n_evict)
+    bk_keys, bk_seeds = VZ.summary_from_keysorted(bkk, bks, bkk.shape[-1])
+
+    def put(leaf, new):
+        return leaf.index_copy_(0, idx, new.reshape((A,) + leaf.shape[1:]))
+
+    n_seen = state.n_seen.copy()
+    n_seen[tenants] += spec.chunk
+    return SamplerState(
+        table=VZ.TableState(*(put(x, y) for x, y in zip(state.table, table))),
+        n_seen=n_seen, l=state.l, salt=state.salt,
+        bk_keys=put(state.bk_keys, bk_keys), bk_seeds=put(state.bk_seeds, bk_seeds))
+
+
+def _final_evict_bank(table: VZ.TableState, l, salts, spec: SamplerSpec):
+    """The non-persisted eviction round of ``finalize_multi`` for every row
+    of a bank's [n, L, cap] table (``salts`` int32 bits [n] on its device)."""
+    n, L = table.tau.shape
+    flat = VZ.TableState(*(x.reshape((n * L,) + x.shape[2:]) for x in table))
+    ev = VZ.evict_table(flat, k=spec.k, l=l.repeat(n),
+                        salt=salts[:, None].expand(n, L).reshape(-1))
+    return VZ.TableState(*(x.view((n, L) + x.shape[1:]) for x in ev))
+
+
+class _PendingQueue:
+    """Per-tenant ingest staging: a list of host arrays with O(1) appends;
+    ``take``/``peek_all`` concatenate lazily.  It may hold many chunks: the
+    bank drains one chunk per tick."""
+
+    def __init__(self):
+        self._keys: list[np.ndarray] = []
+        self._weights: list[np.ndarray] = []
+        self.size = 0
+
+    def push(self, keys: np.ndarray, weights) -> None:
+        """``keys`` must already be normalized (int32, validated)."""
+        keys = np.asarray(keys, np.int32).reshape(-1)
+        if weights is None:
+            weights = np.ones(len(keys), np.float32)
+        weights = np.asarray(weights, np.float32).reshape(-1)
+        if len(weights) != len(keys):
+            raise ValueError(
+                f"weights length {len(weights)} != keys length {len(keys)}")
+        if len(keys):
+            self._keys.append(keys)
+            self._weights.append(weights)
+            self.size += len(keys)
+
+    def _compact(self):
+        if len(self._keys) > 1:
+            self._keys = [np.concatenate(self._keys)]
+            self._weights = [np.concatenate(self._weights)]
+
+    def take(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """Pop exactly the oldest ``n`` elements (requires size >= n)."""
+        if n > self.size:
+            raise ValueError(f"take({n}) from queue of {self.size}")
+        self._compact()
+        k, w = self._keys[0], self._weights[0]
+        self._keys = [k[n:]] if len(k) > n else []
+        self._weights = [w[n:]] if len(w) > n else []
+        self.size -= n
+        return k[:n], w[:n]
+
+    def peek_all(self) -> tuple[np.ndarray, np.ndarray]:
+        """Everything queued, without popping."""
+        self._compact()
+        if not self._keys:
+            return np.zeros(0, np.int32), np.zeros(0, np.float32)
+        return self._keys[0], self._weights[0]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.nbytes for a in self._keys) + sum(a.nbytes for a in self._weights)
+
+
+class TenantBank:
+    """N resident multi-l samplers advanced as ONE stacked set of leaves.
+
+    ``observe(tenant, ...)`` stages elements in per-tenant host queues; each
+    ``tick()`` takes one chunk from EVERY tenant with a full chunk queued and
+    advances all of their l-grids in one stacked step: one ``chunksort`` and
+    one ``capscore_agg`` launch for all of them.  Sub-chunk remainders stay
+    queued and are folded in, padded, only at finalize time (and saved as
+    ``rem_*`` leaves by ``state_dict``).
+
+    Contract: tenant t finalizes bit for bit (tables, taus, bottom-(k+1)
+    summaries, query answers) like a standalone ``MultiSampler`` built with
+    ``salt=salts[t]`` and fed the same chunks -- the bank changes the number
+    of launches, not one bit of any tenant's sample.
+
+    Checkpoints: ``state_dict`` is one flat dict of [T, ...]-stacked leaves,
+    leaf for leaf the reference bank's; ``tenant_state_dict(t)`` is one
+    tenant in the ``MultiSampler.state_dict`` format, and
+    ``load_tenant_state_dict(t, d)`` splices one in (the handoff surface;
+    ``checkpoint.manager.restore_slice`` restores one tenant from a bank
+    checkpoint).  ``device=None`` runs on the CUDA card.
+    """
+
+    def __init__(self, ls, *, n_tenants, k, chunk=2048, salts=0, host_id=None,
+                 evict_every=1, device=None):
+        self.ls = tuple(float(l) for l in ls)
+        self.n_tenants = int(n_tenants)
+        self.device = resolve_device(device)
+        self.state, self.spec = init_bank_state(
+            ls, n_tenants=n_tenants, k=k, chunk=chunk, salts=salts,
+            host_id=host_id, evict_every=evict_every, device=self.device)
+        self._queues = [_PendingQueue() for _ in range(self.n_tenants)]
+        self._n_real = np.zeros(self.n_tenants, np.int64)
+        # each tenant's eviction round (table.step), kept on the host: the
+        # bank knows who advanced in each tick, so it never reads it back
+        self._rounds = np.zeros(self.n_tenants, np.int64)
+
+    # -- ingestion ---------------------------------------------------------
+
+    def observe(self, tenant: int, keys, weights=None) -> None:
+        """Stage a batch of tenant ``tenant``'s stream (host arrays); the
+        device state advances at the next ``tick``."""
+        keys = normalize_keys(keys)
+        self._queues[tenant].push(keys, weights)
+        self._n_real[tenant] += len(keys)
+
+    def backlog_chunks(self) -> np.ndarray:
+        """Full chunks currently queued, per tenant."""
+        return np.asarray([q.size // self.spec.chunk for q in self._queues], np.int64)
+
+    def _due_first(self, tenants) -> tuple[np.ndarray, int]:
+        """The order that puts the tenants whose next round evicts first,
+        and how many those are."""
+        E = self.spec.evict_every
+        if E == 1:
+            return np.arange(len(tenants)), len(tenants)
+        due = (self._rounds[tenants] + 1) % E == 0
+        return np.concatenate([np.nonzero(due)[0], np.nonzero(~due)[0]]), int(due.sum())
+
+    def tick(self) -> int:
+        """One stacked step: every tenant with >= 1 full chunk queued
+        advances by exactly one chunk.  Returns the number of active tenants
+        (0: nothing to do, nothing launched).  Never waits for the device."""
+        chunk = self.spec.chunk
+        active = np.asarray([t for t, q in enumerate(self._queues) if q.size >= chunk],
+                            np.int64)
+        if not len(active):
+            return 0
+        order, n_evict = self._due_first(active)
+        tenants = active[order]
+        K = np.empty((len(tenants), chunk), np.int32)
+        W = np.empty((len(tenants), chunk), np.float32)
+        for i, t in enumerate(tenants):
+            K[i], W[i] = self._queues[t].take(chunk)
+        self.state = update_bank(self.state, K, W, tenants, self.spec, n_evict=n_evict)
+        self._rounds[tenants] += 1
+        return len(tenants)
+
+    def drain(self) -> int:
+        """Tick until no tenant holds a full chunk; returns ticks issued."""
+        ticks = 0
+        while self.tick():
+            ticks += 1
+        return ticks
+
+    # -- extraction --------------------------------------------------------
+
+    def _subset(self, tenants) -> SamplerState:
+        """A copy of the chosen tenants' state (leaves [n, ...], in the
+        order given)."""
+        st = self.state
+        tenants = np.asarray(tenants, np.int64)
+        (idx,) = _stage(self.device, tenants)
+        return SamplerState(
+            table=VZ.TableState(*(x.index_select(0, idx) for x in st.table)),
+            n_seen=st.n_seen[tenants], l=st.l, salt=st.salt[tenants],
+            bk_keys=st.bk_keys.index_select(0, idx),
+            bk_seeds=st.bk_seeds.index_select(0, idx))
+
+    def _flushed(self, tenants) -> SamplerState:
+        """The chosen tenants' state with each queued remainder folded in
+        (full chunks are drained for real first; each sub-chunk remainder is
+        EMPTY/0 padded to one chunk, exactly the padding a standalone
+        MultiSampler applies at finalize).  The live state and queues are
+        left as they were."""
+        self.drain()
+        tenants = np.asarray(tenants, np.int64)
+        sub = self._subset(tenants)
+        rem = np.asarray([i for i, t in enumerate(tenants) if self._queues[t].size])
+        if not len(rem):
+            return sub
+        chunk = self.spec.chunk
+        K = np.full((len(rem), chunk), EMPTY, np.int32)
+        W = np.zeros((len(rem), chunk), np.float32)
+        for i, j in enumerate(rem):
+            kk, ww = self._queues[tenants[j]].peek_all()
+            K[i, :len(kk)], W[i, :len(ww)] = kk, ww
+        order, n_evict = self._due_first(tenants[rem])
+        # ``sub`` is this call's own copy: it is updated in place
+        return update_bank(sub, K[order], W[order], rem[order], self.spec,
+                           n_evict=n_evict)
+
+    def flushed_state(self) -> SamplerState:
+        """The whole bank with every queued element folded in (see
+        ``_flushed``); the live state is untouched."""
+        return self._flushed(range(self.n_tenants))
+
+    def finalize_some(self, tenants) -> dict[int, dict[float, SampleResult]]:
+        """The per-lane SampleResults of a SUBSET of tenants: only their rows
+        are flushed and evicted, and they leave the device in ONE copy."""
+        tenants = np.asarray(sorted({int(t) for t in tenants}), np.int64)
+        st = self._flushed(tenants)
+        table = st.table
+        if self.spec.evict_every > 1:
+            (salts,) = _stage(self.device, st.salt.view(np.int32))
+            table = _final_evict_bank(table, st.l, salts, self.spec)
+        n, L, cap = table.keys.shape
+        host = torch.cat([table.keys.reshape(-1), table.counts.view(torch.int32).reshape(-1),
+                          table.tau.view(torch.int32).reshape(-1)]).cpu().numpy()
+        keys = host[: n * L * cap].reshape(n, L, cap)
+        counts = host[n * L * cap: 2 * n * L * cap].view(np.float32).reshape(n, L, cap)
+        taus = host[2 * n * L * cap:].view(np.float32).reshape(n, L)
+        return {int(t): {l: VZ._to_result(keys[i, j], counts[i, j], l=l,
+                                          kind=self.spec.kind, tau=float(taus[i, j]))
+                         for j, l in enumerate(self.ls)}
+                for i, t in enumerate(tenants)}
+
+    def finalize_all(self) -> list[dict[float, SampleResult]]:
+        """Every tenant's per-lane SampleResults, ``out[tenant][l]``."""
+        some = self.finalize_some(range(self.n_tenants))
+        return [some[t] for t in range(self.n_tenants)]
+
+    def finalize(self, tenant: int) -> dict[float, SampleResult]:
+        """One tenant's per-lane SampleResults."""
+        return self.finalize_some([tenant])[tenant]
+
+    def n_observed(self, tenant: int) -> int:
+        return int(self._n_real[tenant])
+
+    # -- serialization (O(T * k * |ls| + T * chunk)) -------------------------
+
+    def state_dict(self) -> dict:
+        """Flat dict of [T, ...]-stacked tensors on the bank's device, leaf
+        for leaf the reference ``TenantBank.state_dict`` (the names and
+        dtypes of ``MultiSampler.state_dict`` with a leading tenant axis,
+        ``ls`` shared).  Queued full chunks are drained into the state
+        first; the remainders travel as ``rem_*``."""
+        self.drain()
+        chunk = self.spec.chunk
+        st, t = self.state, self.state.table
+        host = {"n_seen": st.n_seen.astype(np.int32), "n_real": self._n_real.copy(),
+                "salt": st.salt.copy(),
+                "rem_keys": np.zeros((self.n_tenants, chunk), np.int32),
+                "rem_weights": np.zeros((self.n_tenants, chunk), np.float32),
+                "rem_len": np.zeros(self.n_tenants, np.int32)}
+        for i, q in enumerate(self._queues):
+            kk, ww = q.peek_all()
+            host["rem_keys"][i, :len(kk)] = kk
+            host["rem_weights"][i, :len(ww)] = ww
+            host["rem_len"][i] = len(kk)
+        d = {"keys": t.keys, "counts": t.counts, "kb": t.kb, "seed": t.seed,
+             "tau": t.tau, "step": t.step, "overflow": t.overflow,
+             "bk_keys": st.bk_keys, "bk_seeds": st.bk_seeds, "ls": st.l}
+        d.update(convert.state_from_reference(host, device=self.device))
+        return {name: d[name] for name in convert.SAMPLER_LEAVES}
+
+    def tenant_state_dict(self, tenant: int) -> dict:
+        """One tenant in the ``MultiSampler.state_dict`` format: it loads
+        into a standalone ``MultiSampler`` / ``StreamStatsService`` (the
+        leave handoff) bit for bit."""
+        return {k: (v if k == "ls" else v[tenant]) for k, v in self.state_dict().items()}
+
+    def load_tenant_state_dict(self, tenant: int, d: dict) -> None:
+        """Splice a ``MultiSampler``-format blob (either package's) into one
+        bank row (the join handoff), through a scratch sampler's loader
+        (the same validation and layout canonicalization)."""
+        probe = MultiSampler(self.ls, k=self.spec.k, chunk=self.spec.chunk,
+                             evict_every=self.spec.evict_every, device=self.device)
+        probe.load_state_dict(d)
+        ps, st = probe.state, self.state
+        for leaf, new in zip((*st.table, st.bk_keys, st.bk_seeds),
+                             (*ps.table, ps.bk_keys, ps.bk_seeds)):
+            leaf[tenant] = new
+        st.n_seen[tenant] = ps.n_seen
+        st.salt[tenant] = ps.salt
+        self._rounds[tenant] = int(ps.table.step[0])
+        self._queues[tenant] = _PendingQueue()
+        self._queues[tenant].push(probe._rem.keys, probe._rem.weights)
+        self._n_real[tenant] = int(d["n_real"]) if "n_real" in d else 0
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore from this package's or the reference's bank state dict."""
+        d = convert.state_from_reference(d, device=self.device)
+        T = self.n_tenants
+        if d["keys"].shape[0] != T:
+            raise ValueError(f"bank blob has {d['keys'].shape[0]} tenants, bank "
+                             f"configured with {T}")
+        if d["keys"].shape[-1] != self.state.capacity:
+            raise ValueError(
+                f"state blob table capacity {d['keys'].shape[-1]} != configured "
+                f"capacity {self.state.capacity} (k + evict_every*chunk) -- "
+                "restore with the same (k, chunk, evict_every) the blob was "
+                "written with")
+        # the same per-row layout canonicalization as MultiSampler (a no-op
+        # on current-format blobs)
+        o = torch.sort(d["keys"], dim=-1, stable=True).indices
+        self.state = SamplerState(
+            table=VZ.TableState(
+                keys=d["keys"].gather(-1, o), counts=d["counts"].gather(-1, o),
+                kb=d["kb"].gather(-1, o), seed=d["seed"].gather(-1, o),
+                tau=d["tau"], step=d["step"], overflow=d["overflow"]),
+            n_seen=d["n_seen"].cpu().numpy().astype(np.int64), l=d["ls"],
+            salt=d["salt"].cpu().numpy().copy(),
+            bk_keys=d["bk_keys"], bk_seeds=d["bk_seeds"])
+        self._rounds = d["step"][:, 0].cpu().numpy().astype(np.int64)
+        rem_keys, rem_weights, rem_len = (d[k].cpu().numpy() for k in
+                                          ("rem_keys", "rem_weights", "rem_len"))
+        self._queues = [_PendingQueue() for _ in range(T)]
+        for t in range(T):
+            self._queues[t].push(rem_keys[t, :rem_len[t]], rem_weights[t, :rem_len[t]])
+        self._n_real = d["n_real"].cpu().numpy().astype(np.int64)
+
+    @property
+    def resident_bytes(self) -> int:
+        """The bytes of the reference bank's state leaves (the device
+        tables, summaries and lane grid plus the int32 positions and uint32
+        salts, [T] each) and of the queued elements."""
+        st = self.state
+        dev = sum(x.nbytes for x in (*st.table, st.bk_keys, st.bk_seeds, st.l))
+        return dev + 8 * self.n_tenants + sum(q.nbytes for q in self._queues)

@@ -260,7 +260,8 @@ class ChunkOrder(NamedTuple):
     its int32 segment ids; ``ukeys`` the unique keys compacted to the front
     (ascending, EMPTY padded).  ``eids``/``ws`` are the pre-gathered view:
     the chunk's element ids and weights permuted into key order, so scoring
-    them emits every per-element score already key-sorted.
+    them emits every per-element score already key-sorted.  A batch of
+    chunks [B, C] gives each field per row (``perm`` within its row).
     """
 
     ks: torch.Tensor     # [C] int32 keys sorted ascending (stable; EMPTY last)
@@ -272,7 +273,8 @@ class ChunkOrder(NamedTuple):
 
 
 def chunk_order(keys, eids=None, weights=None) -> ChunkOrder:
-    """Sort a chunk by key once; derive (permutation, segments, uniques).
+    """Sort a chunk [C] (or each row of a batch [B, C]) by key once; derive
+    (permutation, segments, uniques).
 
     The sort goes through the chunksort op, which the tensor's device
     routes: the plain stable sort on the CPU, the CUDA kernel on a card.
@@ -286,8 +288,8 @@ def chunk_order(keys, eids=None, weights=None) -> ChunkOrder:
     (ukeys,) = compact_valid(first, ks, fills=(EMPTY,))
     return ChunkOrder(
         ks=ks, perm=perm, seg=seg, ukeys=ukeys,
-        eids=None if eids is None else eids[perm],
-        ws=None if weights is None else weights[perm],
+        eids=None if eids is None else eids.gather(-1, perm),
+        ws=None if weights is None else weights.gather(-1, perm),
     )
 
 

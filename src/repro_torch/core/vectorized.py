@@ -4,10 +4,12 @@ The pieces on the multi-lane ingest path and the two-pass path: element
 randomness and scores, the per-chunk aggregate record, the sorted-runs table
 merge, the batched eviction of Algorithm 5 (§5.2), the key-sorted
 bottom-(k+1) summary fold, and the pass-I bottom-k summaries and their
-lossless merge (Algorithm 1).  Every function works on a stack of L lanes:
-table leaves are ``[L, cap]``, per-lane scalars ``[L]`` (the reference's
-``vmap`` over lanes written as a leading batch dimension).  Nothing here
-synchronises with the device.
+lossless merge (Algorithm 1).  Every function works on a stack of rows:
+table leaves are ``[R, cap]``, per-row scalars ``[R]`` (the reference's
+``vmap`` over lanes written as a leading batch dimension).  The rows are the
+L lanes of one sampler, or the A x L (tenant, lane) rows of a multi-tenant
+bank tick, where each row also has its own chunk uniques and salt.  Nothing
+here synchronises with the device.
 """
 from __future__ import annotations
 
@@ -103,8 +105,9 @@ def element_scores(kind: str, keys, eids, weights, l, salt):
 
 
 class ChunkAgg(NamedTuple):
-    ukeys: torch.Tensor      # [C] unique keys (EMPTY padded), shared by lanes
-    w_total: torch.Tensor    # [C] total chunk weight per key (lane-independent)
+    ukeys: torch.Tensor      # [C] unique keys (EMPTY padded), shared by lanes,
+                             # or [R, C]: each row's own chunk
+    w_total: torch.Tensor    # total chunk weight per key, shaped as ukeys
     entered: torch.Tensor    # [L, C] bool: an entry event occurred in this chunk
     contrib: torch.Tensor    # [L, C] count contribution from entry onward
     kb: torch.Tensor         # [L, C] KeyBase(x)
@@ -132,14 +135,16 @@ def _merge_table_sorted(state: TableState, agg: ChunkAgg):
     """
     cap = state.keys.shape[-1]
     C = agg.ukeys.shape[-1]
-    a_keys, b_keys = state.keys, agg.ukeys
+    rows = state.keys.shape[:-1] + (C,)
+    a_keys, b_keys = state.keys, agg.ukeys.expand(rows)
     a_live = is_live(a_keys)
     b_live = is_live(b_keys)
 
     # table entries matched against the chunk aggregate (cached-key branch)
     loc_ab = torch.clamp(searchsorted(b_keys, a_keys), 0, C - 1)
-    hit_a = (b_keys[loc_ab] == a_keys) & a_live
-    counts_a = state.counts + torch.where(hit_a, agg.w_total[loc_ab], 0.0)
+    hit_a = (b_keys.gather(-1, loc_ab) == a_keys) & a_live
+    counts_a = state.counts + torch.where(
+        hit_a, agg.w_total.expand(rows).gather(-1, loc_ab), 0.0)
     kb_a = torch.minimum(state.kb, torch.where(hit_a, agg.kb.gather(-1, loc_ab), INF))
     sd_a = torch.minimum(state.seed,
                          torch.where(hit_a, agg.min_score.gather(-1, loc_ab), INF))
@@ -180,9 +185,13 @@ def fixed_k_merge(state: TableState, agg: ChunkAgg) -> TableState:
 
 def _evict_z(keys, counts, kb, tau, l, salt, round_no):
     """Per-key eviction race scores z (§5.2) plus what the survivor-count
-    adjustment needs.  ``tau``/``l``/``round_no`` are [L] lane columns."""
+    adjustment needs.  ``tau``/``l``/``round_no`` are [R] row columns;
+    ``salt`` is a sampler's int, or a bank's per-row salts [R], which hash
+    as a column [R, 1] to the same bits as each row's int."""
     valid = is_live(keys)
     rn = round_no[:, None]
+    if isinstance(salt, torch.Tensor):
+        salt = salt[:, None]
     ux = H.uniform01(H.hash_combine(keys, SALT_EVICT_U, rn, salt))
     rx = H.uniform01(H.hash_combine(keys, SALT_EVICT_R, rn, salt))
     ex = -torch.log1p(-rx)
@@ -345,14 +354,17 @@ def _rank_before(cs, loc_raw):
 def pass1_fold_keysorted(skeys, sseeds, ukeys, mins, cap):
     """One chunk of bottom-cap summary advance on the key-sorted carry.
 
-    ``skeys``/``sseeds``: [L, cap] key-sorted carry.  ``ukeys``: the chunk's
-    unique keys [C] (ascending, EMPTY padded); ``mins``: [L, C] per-key min
-    element scores (the fused aggregate's ``min_score`` column).
+    ``skeys``/``sseeds``: [R, cap] key-sorted carry.  ``ukeys``: the chunk's
+    unique keys [C] (ascending, EMPTY padded), or [R, C] per row; ``mins``:
+    [R, C] per-key min element scores (the fused aggregate's ``min_score``
+    column).
     """
     C = ukeys.shape[-1]
     cap_s = skeys.shape[-1]
+    L = skeys.shape[0]
     a_keys, a_live = skeys, is_live(skeys)
-    b_keys, b_live = ukeys, is_live(ukeys)
+    b_keys = ukeys.expand(L, C)
+    b_live = is_live(b_keys)
 
     # rank passes, unclipped: the raw rank is also the count of other-run
     # keys below, which the position formulas need
@@ -360,7 +372,7 @@ def pass1_fold_keysorted(skeys, sseeds, ukeys, mins, cap):
     loc_ba_raw = searchsorted(a_keys, b_keys)
 
     loc_ab = torch.clamp(loc_ab_raw, max=C - 1)
-    hit_a = (b_keys[loc_ab] == a_keys) & a_live
+    hit_a = (b_keys.gather(-1, loc_ab) == a_keys) & a_live
     sd_a = torch.minimum(sseeds, torch.where(hit_a, mins.gather(-1, loc_ab), INF))
 
     loc_ba = torch.clamp(loc_ba_raw, max=cap_s - 1)
@@ -391,10 +403,9 @@ def pass1_fold_keysorted(skeys, sseeds, ukeys, mins, cap):
                                     cap_s), max=cap_s)
     pos_b = torch.clamp(torch.where(keep_b, csb - 1 + _rank_before(csa, loc_ba_raw),
                                     cap_s), max=cap_s)
-    L = skeys.shape[0]
     kk = torch.full((L, cap_s + 1), EMPTY, dtype=a_keys.dtype, device=a_keys.device)
     kk.scatter_(-1, pos_a, a_keys)
-    kk.scatter_(-1, pos_b, b_keys.expand(L, C))
+    kk.scatter_(-1, pos_b, b_keys)
     ss = torch.full((L, cap_s + 1), INF, dtype=sd_a.dtype, device=sd_a.device)
     ss.scatter_(-1, pos_a, sd_a)
     ss.scatter_(-1, pos_b, mins)

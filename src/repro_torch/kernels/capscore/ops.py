@@ -7,7 +7,10 @@
   shared;
 * ``capscore_agg(ks, eids, ws, seg, ls, taus, salt)`` scores every l lane of
   a key-sorted chunk and reduces per key, returning ``(w_total [C], entered
-  bool [L, C], contrib, kb_min, min_score [L, C])``;
+  bool [L, C], contrib, kb_min, min_score [L, C])``; given a batch of B
+  chunks (``ks``, ``eids``, ``ws``, ``seg`` [B, C], ``taus`` [B, L] and
+  ``salt`` a tensor of B salts, int32 or uint32 bits; ``ls`` [L] shared) it
+  reduces each in one launch and every output gains a leading [B];
 
 with the return types of ``repro/kernels/capscore/ops.py`` (``entry`` is
 int32).  A CPU tensor runs the plain version; a CUDA tensor launches the
@@ -38,6 +41,11 @@ _SIGNATURES = {
     "capscore_agg_launch": ([_P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
                              ctypes.c_uint, _P, _P, _P, _P, _P, _P],
                             ctypes.c_int),
+    # ks, eids, ws, seg, B, C, ls, taus, L, salts,
+    # w_total, entered, contrib, kb_min, min_score, stream
+    "capscore_agg_batch_launch": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
+                                   ctypes.c_int, _P, _P, _P, _P, _P, _P, _P],
+                                  ctypes.c_int),
 }
 _SCORE_SIGNATURES = {
     # keys, eids, weights, n, ls, taus, L, salt, score, delta, entry, kb, stream
@@ -66,7 +74,8 @@ def capscore_multi(keys, eids, weights, ls, taus, salt):
 
 
 def capscore_agg(ks, eids, ws, seg, ls, taus, salt):
-    """Fused multi-l scoring + per-key chunk aggregation, routed by device."""
+    """Fused multi-l scoring + per-key chunk aggregation of one chunk or of
+    a batch of chunks, routed by device."""
     if ks.device.type == "cpu":
         return capscore_agg_ref(ks, eids, ws, seg, ls, taus, salt)
     return capscore_agg_cuda(ks, eids, ws, seg, ls, taus, salt)
@@ -100,6 +109,8 @@ def _launch(dev, fn, *args):
 def capscore_agg_cuda(ks, eids, ws, seg, ls, taus, salt):
     """The CUDA kernel: one CTA per chunk, segmented scans over its tiles.
     ``seg`` must be the dense segment ids of ``ks`` (``chunk_order``'s)."""
+    if ks.dim() == 2:
+        return _capscore_agg_batch_cuda(ks, eids, ws, seg, ls, taus, salt)
     dev = ks.device
     # straight-line checks: this wrapper runs once per ingest chunk
     if dev.type != "cuda":
@@ -131,6 +142,45 @@ def capscore_agg_cuda(ks, eids, ws, seg, ls, taus, salt):
     rc = _launch(dev, lib.capscore_agg_launch,
                  ks.data_ptr(), eids.data_ptr(), ws.data_ptr(), seg.data_ptr(), C,
                  ls.data_ptr(), taus.data_ptr(), L, int(salt) & 0xFFFFFFFF,
+                 w_total.data_ptr(), entered.data_ptr(), contrib.data_ptr(),
+                 kb_min.data_ptr(), min_score.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"capscore_agg kernel launch failed: CUDA error {rc}")
+    capscore_agg_cuda.launches += 1
+    return w_total, entered, contrib, kb_min, min_score
+
+
+def _capscore_agg_batch_cuda(ks, eids, ws, seg, ls, taus, salts):
+    """B chunks in one launch on a grid of (B, 1 + helpers)."""
+    dev = ks.device
+    if dev.type != "cuda":
+        raise ValueError(f"capscore_agg_cuda needs CUDA tensors, got {dev}")
+    if not (ks.numel() > 0 and ls.dim() == 1 and 0 < ls.numel() <= MAX_LANES):
+        raise ValueError(f"capscore_agg needs ks [B, C] with B, C >= 1 and ls [L] with "
+                         f"1 <= L <= {MAX_LANES}, got {tuple(ks.shape)}, {tuple(ls.shape)}")
+    B, C = ks.shape
+    L = ls.shape[0]
+    if salts.dtype == torch.uint32:
+        salts = salts.view(torch.int32)
+    for name, t, dtype, shape in (("eids", eids, torch.int32, (B, C)),
+                                  ("ws", ws, torch.float32, (B, C)),
+                                  ("seg", seg, torch.int32, (B, C)),
+                                  ("ks", ks, torch.int32, (B, C)),
+                                  ("ls", ls, torch.float32, (L,)),
+                                  ("taus", taus, torch.float32, (B, L)),
+                                  ("salts", salts, torch.int32, (B,))):
+        _check(name, t, dtype, shape, dev)
+    # the four f32 outputs carved from one allocation, each contiguous
+    w_total, contrib, kb_min, min_score = torch.empty(
+        B * C * (1 + 3 * L), dtype=torch.float32, device=dev).split(
+            (B * C, B * L * C, B * L * C, B * L * C))
+    w_total = w_total.view(B, C)
+    contrib, kb_min, min_score = (x.view(B, L, C) for x in (contrib, kb_min, min_score))
+    entered = torch.empty((B, L, C), dtype=torch.bool, device=dev)
+    lib = _build.load("capscore_agg", _SIGNATURES)
+    rc = _launch(dev, lib.capscore_agg_batch_launch,
+                 ks.data_ptr(), eids.data_ptr(), ws.data_ptr(), seg.data_ptr(), B, C,
+                 ls.data_ptr(), taus.data_ptr(), L, salts.data_ptr(),
                  w_total.data_ptr(), entered.data_ptr(), contrib.data_ptr(),
                  kb_min.data_ptr(), min_score.data_ptr())
     if rc != 0:

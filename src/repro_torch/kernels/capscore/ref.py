@@ -58,7 +58,16 @@ def capscore_agg_ref(ks, eids, ws, seg, ls, taus, salt):
     Returns the per-unique-key ChunkAgg columns
         (w_total f32 [C], entered bool [L, C], contrib f32 [L, C],
          kb_min f32 [L, C], min_score f32 [L, C]).
+
+    A batch of chunks (``ks``, ``eids``, ``ws``, ``seg`` [B, C], ``taus``
+    [B, L], ``salt`` a tensor of B salts) is reduced row by row, each row
+    exactly as the single chunk, and the columns stacked on a leading [B].
     """
+    if ks.dim() == 2:
+        salts = [int(s) & 0xFFFFFFFF for s in salt.to(torch.int64).tolist()]
+        rows = [capscore_agg_ref(ks[b], eids[b], ws[b], seg[b], ls, taus[b], salts[b])
+                for b in range(ks.shape[0])]
+        return tuple(torch.stack(cols) for cols in zip(*rows))
     C = ks.shape[0]
     score, delta, entry, kb = capscore_multi_ref(ks, eids, ws, ls, taus, salt)
     live = is_live(ks)

@@ -40,6 +40,12 @@
 // alternative.  No binary search, no per-key walk, no atomics: the scan
 // order is fixed, so two launches give the same bits.
 //
+// A batch of B chunks (the multi-tenant bank's tick: one chunk per tenant,
+// each with its own salt and taus, the l grid shared) is one launch on a
+// grid of (B, 1 + helpers): CTA (b, 0) reduces chunk b exactly as a
+// single-chunk launch does, CTAs (b, y > 0) write its identity rows, and
+// every output gains a leading [B].
+//
 // Exactness: entered, kb_min and min_score equal the plain PyTorch version
 // bit for bit (same IEEE divisions in the same order — ku / l, not
 // ku * (1/l) — and the same libdevice log1pf PyTorch's CUDA log1p calls;
@@ -197,17 +203,33 @@ __device__ __forceinline__ void stage_row(Stage& st, int r, int A, int g,
   }
 }
 
+// Chunk b = blockIdx.x of the batch: its rows of ks, eids, ws, seg, taus and
+// of every output; its salt is salts[b], or `salt` when salts is null.
 __global__ void __launch_bounds__(THREADS)
 capscore_agg_kernel(const int* __restrict__ ks, const int* __restrict__ eids,
                     const float* __restrict__ ws, const int* __restrict__ seg,
                     int C, const float* __restrict__ ls,
-                    const float* __restrict__ taus, int L, uint32_t salt,
-                    Out o) {
+                    const float* __restrict__ taus, int L,
+                    const uint32_t* __restrict__ salts, uint32_t salt, Out o) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  if (blockIdx.x > 0) {
+  {
+    const size_t b = blockIdx.x;
+    ks += b * C;
+    eids += b * C;
+    ws += b * C;
+    seg += b * C;
+    taus += b * L;
+    o.w_total += b * C;
+    o.entered += b * L * C;
+    o.contrib += b * L * C;
+    o.kb_min += b * L * C;
+    o.min_score += b * L * C;
+    if (salts != nullptr) salt = salts[b];
+  }
+  if (blockIdx.y > 0) {
     // the helper CTAs: rows past the last segment id get the identities
-    const int helpers = gridDim.x - 1;
-    for (int r = max(seg[C - 1] + 1, 0) + (blockIdx.x - 1) * THREADS + t; r < C;
+    const int helpers = gridDim.y - 1;
+    for (int r = max(seg[C - 1] + 1, 0) + (blockIdx.y - 1) * THREADS + t; r < C;
          r += helpers * THREADS)
       identity_row(o, r);
     return;
@@ -350,6 +372,30 @@ capscore_agg_kernel(const int* __restrict__ ks, const int* __restrict__ eids,
 // ls, taus: f32 [L] on the device, 1 <= L <= 4096.  Outputs:
 // w_total f32 [C]; entered u8, contrib, kb_min, min_score f32, each [L, C]
 // row-major.
+namespace {
+
+int launch(const int* ks, const int* eids, const float* ws, const int* seg,
+           int B, int C, const float* ls, const float* taus, int L,
+           const uint32_t* salts, uint32_t salt, float* w_total,
+           unsigned char* entered, float* contrib, float* kb_min,
+           float* min_score, void* stream_ptr) {
+  if (B < 1 || C < 1 || L < 1 || L > MAX_LANES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static cudaError_t attr = cudaFuncSetAttribute(
+      capscore_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const Out o{w_total, entered, contrib, kb_min, min_score, C, L};
+  // CTA (b, 0) reduces chunk b; the helpers fill the rows no segment owns
+  const int tail_ctas = (C + THREADS - 1) / THREADS;
+  const int helpers = tail_ctas < MAX_HELPERS ? tail_ctas : MAX_HELPERS;
+  capscore_agg_kernel<<<dim3(B, 1 + helpers), THREADS, STAGE_BYTES, stream>>>(
+      ks, eids, ws, seg, C, ls, taus, L, salts, salt, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 extern "C" int capscore_agg_launch(const int* ks, const int* eids,
                                    const float* ws, const int* seg, int C,
                                    const float* ls, const float* taus, int L,
@@ -357,16 +403,21 @@ extern "C" int capscore_agg_launch(const int* ks, const int* eids,
                                    unsigned char* entered, float* contrib,
                                    float* kb_min, float* min_score,
                                    void* stream_ptr) {
-  if (C < 1 || L < 1 || L > MAX_LANES) return static_cast<int>(cudaErrorInvalidValue);
-  static cudaError_t attr = cudaFuncSetAttribute(
-      capscore_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE_BYTES);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const Out o{w_total, entered, contrib, kb_min, min_score, C, L};
-  // CTA 0 reduces the chunk; the helpers fill the rows no segment owns
-  const int tail_ctas = (C + THREADS - 1) / THREADS;
-  const int helpers = tail_ctas < MAX_HELPERS ? tail_ctas : MAX_HELPERS;
-  capscore_agg_kernel<<<1 + helpers, THREADS, STAGE_BYTES, stream>>>(
-      ks, eids, ws, seg, C, ls, taus, L, salt, o);
-  return static_cast<int>(cudaGetLastError());
+  return launch(ks, eids, ws, seg, 1, C, ls, taus, L, nullptr, salt, w_total,
+                entered, contrib, kb_min, min_score, stream_ptr);
+}
+
+// A batch of B chunks: ks, eids, seg int32 and ws f32, each [B, C] (row b
+// key-sorted with its dense segment ids); ls f32 [L], shared; taus f32
+// [B, L]; salts uint32 [B].  Outputs w_total f32 [B, C]; entered u8,
+// contrib, kb_min, min_score f32, each [B, L, C].
+extern "C" int capscore_agg_batch_launch(const int* ks, const int* eids,
+                                         const float* ws, const int* seg, int B,
+                                         int C, const float* ls, const float* taus,
+                                         int L, const unsigned int* salts,
+                                         float* w_total, unsigned char* entered,
+                                         float* contrib, float* kb_min,
+                                         float* min_score, void* stream_ptr) {
+  return launch(ks, eids, ws, seg, B, C, ls, taus, L, salts, 0u, w_total,
+                entered, contrib, kb_min, min_score, stream_ptr);
 }

@@ -11,7 +11,9 @@
 // critical path of the network inside one CTA.
 //
 // n <= 2048, the ingest chunk (`sort_chunk`): one CTA of 256 threads sorts
-// the whole chunk in registers.  Each (key, idx) pair is one 64-bit word,
+// the whole chunk in registers.  A batch of chunks (`chunksort_sort_rows`,
+// the multi-tenant bank's one chunk per tenant) is one launch of one such
+// CTA per row, each row sorted on its own: perm holds indices within it.  Each (key, idx) pair is one 64-bit word,
 // the key with its sign bit flipped in the high half and idx in the low
 // half, so one unsigned compare orders pairs lexicographically.  Element i
 // of the 2048-slot bitonic network lives in register i % 8 of thread i / 8
@@ -66,10 +68,15 @@ __device__ __forceinline__ void exchange(unsigned long long& a, unsigned long lo
   }
 }
 
+// CTA b sorts row b of keys [B, n] (B = 1: one chunk)
 __global__ void __launch_bounds__(CHUNK_THREADS)
 sort_chunk(const int* __restrict__ keys, int n, int* __restrict__ ks_out,
            long long* __restrict__ perm_out) {
   __shared__ unsigned long long sm[CHUNK];
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  keys += row;
+  ks_out += row;
+  perm_out += row;
   const int t = threadIdx.x;
   const int first = t * WORDS;  // element of register 0
   unsigned long long x[WORDS];
@@ -254,6 +261,17 @@ __global__ void finish_blocks(int* gk, int* gi, int size, int n, int final_out,
 
 // The largest n that sorts without scratch: one CTA, no global stages.
 extern "C" int chunksort_block() { return BLOCK; }
+
+// keys: int32 [B, n], contiguous, n <= 2048: each row sorted on its own by
+// one CTA, in one launch (ks_out int32 and perm_out int64, each [B, n]).
+extern "C" int chunksort_sort_rows(const int* keys, int B, int n, int* ks_out,
+                                   long long* perm_out, void* stream_ptr) {
+  if (B <= 0 || n <= 0) return 0;
+  if (n > CHUNK) return static_cast<int>(cudaErrorInvalidValue);
+  sort_chunk<<<B, CHUNK_THREADS, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      keys, n, ks_out, perm_out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // keys: int32 [n], contiguous.  Writes the n sorted keys to ks_out and their
 // source indices to perm_out.  scratch_k / scratch_i: int32 [P] each, P the

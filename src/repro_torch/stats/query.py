@@ -13,6 +13,12 @@ contracted into a fused multiply-add — while the transcendental pieces
 (2-pass Phi, discrete beta tables, f-tables of custom FreqFns) are built on
 host with the scalar estimators' numpy code, and the final per-query
 reduction is an f64 ``np.sum`` on host over the lane's true sample length.
+
+``query_batch_async`` enqueues a batch's device pass and returns at once (a
+``PendingBatch``): its uploads are non-blocking copies from pinned memory
+and nothing in it waits for the device, so a caller can enqueue other work
+(the serving scheduler's next ingest tick) behind it; ``result()`` copies
+the per-key matrix to the host once and reduces it.
 """
 from __future__ import annotations
 
@@ -96,6 +102,15 @@ def _dispatch(counts, valid, phi, segbank, fbank, fpbank, ints, floats, *,
     else:
         est = torch.where(p == _PATH_F, fval, cont)
     return torch.where(live, est, 0.0)
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``; on a card a non-blocking copy from pinned
+    memory, which never waits for the device."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _next_pow2(n: int) -> int:
@@ -193,9 +208,9 @@ class QueryEngine:
         self._one_minus_pincl = 1.0 - pincl  # host [L, K], for the var matvec
         self._has_invprob = any(lane.path == _PATH_INVPROB for lane in self.lanes)
         self.device = torch.device(device)
-        self._counts = torch.from_numpy(counts).to(self.device)
-        self._valid = torch.from_numpy(valid).to(self.device)
-        self._phi = torch.from_numpy(phi).to(self.device)
+        self._counts = _upload(counts, self.device)
+        self._valid = _upload(valid, self.device)
+        self._phi = _upload(phi, self.device)
         # device-resident banks of compiled segment masks and coefficient
         # tables, grown on first use and cached across batches: a steady-
         # state batch ships only two [*, Q] vectors to the device
@@ -294,9 +309,9 @@ class QueryEngine:
             fp = np.zeros((T, self.K), np.float64)
             f[: len(self._tab_f_rows)] = np.stack(self._tab_f_rows)
             fp[: len(self._tab_fp_rows)] = np.stack(self._tab_fp_rows)
-            self._segbank_d = torch.from_numpy(seg).to(self.device)
-            self._fbank_d = torch.from_numpy(f).to(self.device)
-            self._fpbank_d = torch.from_numpy(fp).to(self.device)
+            self._segbank_d = _upload(seg, self.device)
+            self._fbank_d = _upload(f, self.device)
+            self._fpbank_d = _upload(fp, self.device)
             self._banks_dirty = False
         return self._segbank_d, self._fbank_d, self._fpbank_d
 
@@ -343,11 +358,12 @@ class QueryEngine:
         self._plan_cache[cache_key] = plan
         return plan
 
-    def query_batch(self, queries) -> BatchResult:
-        """Answer every query in one device pass + one host reduction.
-
-        ``queries``: iterable of Query or (fn, segment[, l]) tuples.
-        """
+    def query_batch_async(self, queries) -> "PendingBatch":
+        """Enqueue the device pass of a query batch WITHOUT waiting on it;
+        the returned handle's ``result()`` does the host reduction.  Nothing
+        here synchronises with the device (plans and banks are built on the
+        host, uploads are non-blocking), so other work can be enqueued
+        behind the batch before anything waits."""
         queries = [q if isinstance(q, Query) else Query(*q) for q in queries]
         if not queries:
             raise ValueError("empty query batch")
@@ -356,14 +372,20 @@ class QueryEngine:
         use_tabs = bool(ints[4].any())
         per_key = _dispatch(
             self._counts, self._valid, self._phi, segbank, fbank, fpbank,
-            torch.from_numpy(ints.astype(np.int64)).to(self.device),
-            torch.from_numpy(floats).to(self.device),
+            _upload(ints.astype(np.int64), self.device), _upload(floats, self.device),
             use_phi=self._has_invprob, use_tabs=use_tabs)
-        return self._reduce(per_key.cpu().numpy(), ints, order, len(queries))
+        return PendingBatch(self, per_key, ints, order, len(queries))
+
+    def query_batch(self, queries) -> BatchResult:
+        """Answer every query in one device pass + one host reduction.
+
+        ``queries``: iterable of Query or (fn, segment[, l]) tuples.
+        """
+        return self.query_batch_async(queries).result()
 
     def _reduce(self, per_key, ints, order, Q) -> BatchResult:
         """The host half of a batch: the scalar-path-identical f64
-        reductions of the per-key estimate matrix."""
+        reductions of the per-key estimate matrix (host numpy)."""
         lane_idx = ints[0, :Q]
         # the scalar path's reduction: f64 np.sum over the lane's true sample
         # length (identical pairwise grouping => identical bits); rows of one
@@ -396,3 +418,27 @@ class QueryEngine:
             lanes=lanes,
         )
 
+
+
+class PendingBatch:
+    """A dispatched query batch: the device per-key matrix plus the host plan
+    that finishes it.  ``result()`` copies the matrix to the host once and
+    runs the f64 reductions; later calls return the cached BatchResult."""
+
+    def __init__(self, engine: QueryEngine, per_key, ints, order, n: int):
+        self._engine = engine
+        self._per_key = per_key
+        self._ints = ints
+        self._order = order
+        self._n = n
+        self._result: BatchResult | None = None
+
+    def __len__(self) -> int:
+        return self._n
+
+    def result(self) -> BatchResult:
+        if self._result is None:
+            self._result = self._engine._reduce(
+                self._per_key.cpu().numpy(), self._ints, self._order, self._n)
+            self._per_key = None  # drop the device buffer
+        return self._result

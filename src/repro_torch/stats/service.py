@@ -31,22 +31,30 @@ Multi-host contract (as the reference's):
   for key-partitioned shards, biased when keys straddle hosts; exact
   queries become unavailable.
 
-Not ported yet: checkpoint files and ``MultiTenantStats``.
+Checkpoints go through ``checkpoint.manager`` in the reference's file
+layout, so a service saved by either package restores in the other.
+
+``MultiTenantStats`` is the multi-tenant serving plane: N tenants' l-grids
+in one ``core.incremental.TenantBank`` (one stacked step per ingest tick)
+and one ``QueryEngine`` over ``(tenant, l)`` lanes that answers a batch
+mixing tenants in one device pass.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import warnings
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from ..checkpoint import manager as ckpt_manager
 from ..core import freqfns, incremental
 from ..core.samplers import SampleResult
 from ..core.segments import EMPTY, normalize_keys
-from .query import BatchResult, Query, QueryEngine
+from .query import BatchResult, PendingBatch, Query, QueryEngine
 
 # the paper's guidance (preceding §6.1): a geometric l-grid with ratio
 # sqrt(2)^2 = 2 keeps every T within sqrt(2) of a lane in log space
@@ -407,3 +415,230 @@ class StreamStatsService:
         # only its own configured host_id
         self._host_ids = (set() if self.config.host_id is None
                           else {self.config.host_id})
+
+    def save_checkpoint(self, ckpt_dir: str | Path, step: int) -> Path:
+        """Commit the service state through ``checkpoint.manager`` (atomic,
+        with retention); the reference's service restores it."""
+        return ckpt_manager.save(ckpt_dir, step, self.state_dict())
+
+    def restore_checkpoint(self, ckpt_dir: str | Path, step: int | None = None) -> int:
+        """Load the latest (or a given) committed step, written by this
+        package or the reference's; returns the step."""
+        if step is None:
+            step = ckpt_manager.latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
+        self.load_state_dict(ckpt_manager.restore(ckpt_dir, step, self.state_dict()))
+        return step
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant serving plane: one stacked bank, one coalesced query engine
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantQuery:
+    """One (tenant, statistic, segment[, lane]) request against a bank."""
+
+    tenant: int
+    fn: freqfns.FreqFn
+    segment: object = None
+    l: float | None = None
+
+
+class MultiTenantStats:
+    """N independent per-tenant stats services served from ONE device plane.
+
+    Every tenant keeps its own l-grid of fixed-k sketches, all of them in
+    one ``TenantBank``: a ``tick`` advances every tenant with a full chunk
+    queued in one stacked step, and one ``QueryEngine`` over ``(tenant, l)``
+    lane keys answers a query batch that mixes tenants in one device pass.
+    Per-tenant answers are bit-identical to ``n_tenants`` standalone
+    ``StreamStatsService``s (salt = the tenant's) over the same streams.
+
+    Snapshot semantics: queries are answered from the engine built at the
+    last ``refresh()``.  The scheduler (``stats.scheduler``) refreshes at its
+    own cadence (``auto_refresh=False``) so the next tick's device work
+    overlaps a query batch against the previous snapshot; direct callers
+    refresh on demand.  ``device=None`` runs on the CUDA card.
+    """
+
+    def __init__(self, config: StatsConfig, *, n_tenants: int, tenant_salts=None,
+                 device=None):
+        self.config = config
+        self.n_tenants = int(n_tenants)
+        salts = config.salt if tenant_salts is None else tenant_salts
+        self._bank = incremental.TenantBank(
+            config.ls, n_tenants=n_tenants, k=config.k, chunk=config.chunk,
+            salts=salts, host_id=config.host_id,
+            evict_every=config.evict_every, device=device)
+        self.device = self._bank.device
+        self._engine: QueryEngine | None = None
+        self._engine_tenants: set[int] | None = None  # None = all tenants
+        self._stale = True
+        self._l_grid_warned = False
+        self._pick_l_cache: dict[float, float] = {}
+
+    # -- ingestion ---------------------------------------------------------
+
+    def observe(self, tenant: int, keys, weights=None) -> None:
+        """Stage stream elements for one tenant (advanced at the next tick)."""
+        self._bank.observe(tenant, keys, weights)
+        self._stale = True
+
+    def tick(self) -> int:
+        """One stacked ingest step (every tenant with a full queued chunk
+        advances by one chunk); returns the active-tenant count."""
+        n = self._bank.tick()
+        if n:
+            self._stale = True
+        return n
+
+    def drain(self) -> int:
+        n = self._bank.drain()
+        if n:
+            self._stale = True
+        return n
+
+    def backlog_chunks(self) -> np.ndarray:
+        return self._bank.backlog_chunks()
+
+    def n_observed(self, tenant: int) -> int:
+        return self._bank.n_observed(tenant)
+
+    # -- query plane -------------------------------------------------------
+
+    @property
+    def stale(self) -> bool:
+        """True when elements were observed or ticked since the last refresh."""
+        return self._stale or self._engine is None
+
+    @property
+    def has_engine(self) -> bool:
+        return self._engine is not None
+
+    def refresh(self, tenants=None) -> QueryEngine:
+        """(Re)build the query snapshot: one extraction off the device and
+        one engine over the (tenant, l) lanes -- the one query-plane point
+        that waits for in-flight ingest.
+
+        ``tenants`` restricts the snapshot to a subset (the scheduler passes
+        the tenants of the admitted batch): only their rows leave the
+        device.  A later query for a tenant outside it widens the snapshot
+        (that tenant's lanes then reflect the state at that point)."""
+        if tenants is None:
+            sketches = {(t, float(l)): res
+                        for t, per in enumerate(self._bank.finalize_all())
+                        for l, res in per.items()}
+            self._engine_tenants = None
+        else:
+            sub = self._bank.finalize_some(tenants)
+            sketches = {(t, float(l)): res
+                        for t, per in sub.items() for l, res in per.items()}
+            self._engine_tenants = set(sub)
+        self._engine = QueryEngine(sketches, device=self.device)
+        self._stale = False
+        return self._engine
+
+    def _ensure_engine(self, auto_refresh: bool, needed: set[int]) -> QueryEngine:
+        if self._engine is None or (auto_refresh and self._stale):
+            return self.refresh()
+        covered = self._engine_tenants
+        if covered is not None and not needed <= covered:
+            return self.refresh(tenants=covered | needed)
+        return self._engine
+
+    def pick_l(self, T: float) -> float:
+        cached = self._pick_l_cache.get(T)
+        if cached is not None:
+            return cached
+        l, dist = _nearest_lane(self.config.ls, T)
+        if dist > _L_GRID_FACTOR + 1e-9 and not self._l_grid_warned:
+            self._l_grid_warned = True
+            warnings.warn(_grid_warning(T, l, dist), RuntimeWarning, stacklevel=2)
+        self._pick_l_cache[T] = l
+        return l
+
+    def _resolve(self, q: TenantQuery) -> Query:
+        if not 0 <= q.tenant < self.n_tenants:
+            raise ValueError(f"tenant {q.tenant} out of range [0, {self.n_tenants})")
+        l = q.l
+        if l is None:
+            kind = q.fn.kind
+            if kind in ("cap", "threshold"):
+                l = self.pick_l(q.fn.param)
+            elif kind == "distinct":
+                l = self.pick_l(1.0)
+            else:  # total / moment / log1p / custom: weight-proportional
+                l = max(self.config.ls)
+        return Query(q.fn, q.segment, (int(q.tenant), float(l)))
+
+    def resolve_queries(self, requests) -> list[Query]:
+        """(tenant, fn, segment[, l]) tuples or TenantQuerys as engine
+        queries addressed by lane key (tenant, l)."""
+        qs = [r if isinstance(r, TenantQuery) else TenantQuery(*r) for r in requests]
+        return [self._resolve(q) for q in qs]
+
+    def query_batch(self, requests, *, auto_refresh: bool = True) -> BatchResult:
+        """Answer a batch mixing tenants in one device pass; each request a
+        ``TenantQuery`` or a ``(tenant, fn, segment[, l])`` tuple.  Answers
+        and diagnostics are bit-identical to each tenant's standalone
+        service's."""
+        return self.query_batch_async(requests, auto_refresh=auto_refresh).result()
+
+    def query_batch_async(self, requests, *, auto_refresh: bool = True) -> PendingBatch:
+        """Enqueue the batch's device pass without waiting for it (see
+        ``QueryEngine.query_batch_async``): the scheduler's overlap hook."""
+        qs = self.resolve_queries(requests)
+        engine = self._ensure_engine(auto_refresh, {q.l[0] for q in qs})
+        return engine.query_batch_async(qs)
+
+    def query_cap(self, tenant: int, T: float, segment=None) -> float:
+        r = self.query_batch([TenantQuery(tenant, freqfns.cap(T), segment)])
+        return float(r.estimates[0])
+
+    def query_distinct(self, tenant: int, segment=None) -> float:
+        r = self.query_batch([TenantQuery(tenant, freqfns.distinct(), segment)])
+        return float(r.estimates[0])
+
+    def query_total(self, tenant: int, segment=None) -> float:
+        r = self.query_batch([TenantQuery(tenant, freqfns.total(), segment)])
+        return float(r.estimates[0])
+
+    # -- checkpointing -----------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """[T, ...]-stacked flat dict (``TenantBank.state_dict``); one tenant
+        slices out through ``tenant_state_dict`` / ``manager.restore_slice``."""
+        return self._bank.state_dict()
+
+    def load_state_dict(self, d: dict) -> None:
+        self._bank.load_state_dict(d)
+        self._engine = None
+        self._stale = True
+
+    def tenant_state_dict(self, tenant: int) -> dict:
+        """One tenant in ``MultiSampler.state_dict`` form (the leave handoff)."""
+        return self._bank.tenant_state_dict(tenant)
+
+    def load_tenant_state_dict(self, tenant: int, d: dict) -> None:
+        """Splice one tenant's blob into the bank (the join handoff)."""
+        self._bank.load_tenant_state_dict(tenant, d)
+        self._engine = None
+        self._stale = True
+
+    @property
+    def resident_bytes(self) -> int:
+        return self._bank.resident_bytes
+
+    def save_checkpoint(self, ckpt_dir: str | Path, step: int) -> Path:
+        return ckpt_manager.save(ckpt_dir, step, self.state_dict())
+
+    def restore_checkpoint(self, ckpt_dir: str | Path, step: int | None = None) -> int:
+        if step is None:
+            step = ckpt_manager.latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
+        self.load_state_dict(ckpt_manager.restore(ckpt_dir, step, self.state_dict()))
+        return step

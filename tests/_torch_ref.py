@@ -171,3 +171,31 @@ def assert_rtol(a, b, rtol=RTOL, what="values"):
     np.testing.assert_allclose(np.asarray(a, np.float64),
                                np.asarray(b, np.float64), rtol=rtol, atol=0,
                                err_msg=what)
+
+
+# state-dict leaves of a sampler, service or bank, by the rule they are held to
+EXACT_LEAVES = ("keys", "kb", "step", "overflow", "bk_keys", "n_seen", "n_real", "ls",
+                "salt", "rem_keys", "rem_weights", "rem_len", "exact_ok")
+E_DERIVED_LEAVES = ("seed", "tau", "bk_seeds")
+
+
+def assert_state_dicts_agree(port, ref, max_weight=1.0, what="state"):
+    """A port state dict against a reference one (either may be numpy or
+    torch): the same leaf names and dtypes, and the values under the module
+    docstring's rules: integers, keys, KeyBase, the lane grid and the
+    remainders exact; e-derived seeds and taus within rtol 1e-5; counts
+    within rtol 1e-5 plus 4 ulp of the largest element weight."""
+    assert sorted(port) == sorted(ref), (what, sorted(port), sorted(ref))
+    for name in ref:
+        p, r = to_np(port[name]), to_np(ref[name])
+        assert p.dtype == r.dtype and p.shape == r.shape, (what, name, p.dtype, r.dtype,
+                                                         p.shape, r.shape)
+        if name in EXACT_LEAVES:
+            assert np.array_equal(p, r), (what, name)
+        elif name in E_DERIVED_LEAVES:
+            np.testing.assert_allclose(p, r, rtol=RTOL, err_msg=f"{what}: {name}")
+        elif name == "counts":
+            np.testing.assert_allclose(p, r, rtol=RTOL, atol=count_atol(max_weight),
+                                       err_msg=f"{what}: counts")
+        else:
+            raise AssertionError(f"{what}: no rule for leaf {name!r}")

@@ -26,6 +26,13 @@ the serving prefill.
 round once to f32: the kernels each segment's rows in ascending row order,
 the plain version's CUDA ``index_add_`` with atomics in any order);
 integer-valued rows exactly; two launches on the same input bit-identical.
+The batched entries of the multi-tenant bank's tick (``chunksort`` [B, n],
+``capscore_agg`` [B, C] with per-row salts and taus): each row equal to its
+single-chunk launch bit for bit (NaN-aware), and to the plain versions as
+above.  The bank on the card: every tenant bit-identical to a standalone
+sampler on the card, one launch of each kernel per tick, no host sync in a
+tick; against the bank on the CPU, integers exact and floats within rtol
+1e-5 (counts plus 4 ulp of the largest weight).
 """
 import numpy as np
 import pytest
@@ -596,3 +603,142 @@ def test_segment_sum_cuda_refuses_what_the_kernel_does_not_take():
         eops.segment_sum_cuda(torch.zeros((7, 4), device="cuda"), seg, n_segments=2)
     with pytest.raises(ValueError, match="CUDA tensors"):
         eops.segment_sum_cuda(torch.zeros((8, 4)), seg.cpu(), n_segments=2)
+
+
+# ---------------------------------------------------------------------------
+# the batched entries of the multi-tenant bank's tick
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,n", [(1, 2048), (7, 2048), (256, 2048), (1024, 2048), (5, 1),
+                                 (9, 37), (3, 2000)])
+def test_chunksort_rows_kernel_equals_single_launches(B, n):
+    """One launch sorts B rows, each bit-identical to its own single-chunk
+    launch and to the plain stable sort."""
+    _require_cuda()
+    rng = np.random.default_rng(B * 7 + n)
+    keys = (rng.zipf(1.2, (B, n)) % (1 << 22)).astype(np.int32)
+    keys[B // 2, :] = 42
+    keys[-1, -max(1, n // 3):] = EMPTY
+    k = torch.from_numpy(keys).cuda()
+    before = sops.sort_with_perm_cuda.launches
+    ks, perm = sops.sort_with_perm(k)
+    assert sops.sort_with_perm_cuda.launches == before + 1
+    want = sops.sort_with_perm_ref(k)
+    assert torch.equal(ks, want[0]) and torch.equal(perm, want[1])
+    for b in range(B):
+        one = sops.sort_with_perm_cuda(k[b])
+        assert torch.equal(ks[b], one[0]) and torch.equal(perm[b], one[1]), b
+
+
+def _same_bits(got, want):
+    nan = got.isnan() if got.is_floating_point() else torch.zeros_like(got, dtype=torch.bool)
+    wnan = want.isnan() if want.is_floating_point() else torch.zeros_like(want, dtype=torch.bool)
+    return (got.dtype == want.dtype and torch.equal(nan, wnan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+@pytest.mark.parametrize("salt_dtype", ["int32", "uint32"])
+@pytest.mark.parametrize("B,C,L", [(1, 2048, 4), (7, 2048, 4), (7, 37, 1), (256, 2048, 4),
+                                   (3, 5000, 8)])
+def test_capscore_agg_batch_kernel_equals_single_launches(B, C, L, salt_dtype):
+    """One launch on a grid of (B, 1 + helpers): each chunk with its own
+    salt and taus equals its single launch bit for bit (NaN-aware: Delta is
+    NaN in a tau = inf lane when a uniform rounds to 1.0) and the plain
+    version (sums within rtol 1e-5)."""
+    _require_cuda()
+    rng = np.random.default_rng(B + C + L)
+    keys = (rng.zipf(1.2, (B, C)) % 997).astype(np.int32)
+    keys[B // 2, :] = 42
+    keys[-1, -max(1, C // 3):] = EMPTY
+    eids = rng.integers(0, 2**31 - 1, (B, C)).astype(np.int32)
+    ws = (rng.random((B, C)) * 3 + 0.05).astype(np.float32)
+    # rows past 2048 keys (tiles with a carry) are sorted one by one: the
+    # batched sort takes rows of up to 2048
+    rows = [chunk_order(*(torch.from_numpy(a[b]).cuda() for a in (keys, eids, ws)))
+            for b in range(B)]
+    order = type(rows[0])(*(torch.stack(f) for f in zip(*rows)))
+    ls = torch.from_numpy(np.resize(np.array([1.0, 16.0, 256.0, 4096.0, 3.0, 64.0, 1024.0,
+                                              8.0], np.float32), L)).cuda()
+    taus = torch.from_numpy(rng.choice(np.array([np.inf, 0.5, 1e-3, 0.9, 5e-4], np.float32),
+                                       (B, L))).cuda()
+    salts = rng.integers(0, 2**32, B).astype(np.uint32)
+    st = torch.from_numpy(salts.view(np.int32)).cuda()
+    if salt_dtype == "uint32":
+        st = st.view(torch.uint32)
+    args = (order.ks, order.eids, order.ws, order.seg, ls, taus, st)
+    before = cops.capscore_agg_cuda.launches
+    got = cops.capscore_agg(*args)
+    assert cops.capscore_agg_cuda.launches == before + 1
+    assert got[0].shape == (B, C) and got[1].shape == (B, L, C)
+    for b in range(B):
+        one = cops.capscore_agg_cuda(order.ks[b], order.eids[b], order.ws[b], order.seg[b],
+                                     ls, taus[b], int(salts[b]))
+        for g, w in zip(got, one):
+            assert _same_bits(g[b], w), b
+    want = cops.capscore_agg_ref(order.ks, order.eids, order.ws, order.seg, ls, taus,
+                                 st.view(torch.int32))
+    for i, name in ((1, "entered"), (3, "kb_min"), (4, "min_score")):
+        assert torch.equal(got[i], want[i]), name
+    for i, name in ((0, "w_total"), (2, "contrib")):
+        np.testing.assert_allclose(got[i].cpu().numpy(), want[i].cpu().numpy(),
+                                   rtol=1e-5, atol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("evict_every", [1, 2])
+def test_bank_tick_on_the_card(evict_every):
+    """The bank on the card: each tenant bit-identical to a standalone
+    sampler on the card fed the same chunks, one chunksort and one
+    capscore_agg launch per tick, no host sync in a tick; and against the
+    bank on the CPU over the same chunks, integers and keys exact, the
+    e-derived values within rtol 1e-5 (torch's CPU and CUDA log1p may
+    round apart by an ulp), counts plus 4 ulp of the largest weight."""
+    _require_cuda()
+    from repro_torch.core.incremental import MultiSampler, TenantBank
+
+    ls, k, chunk, T = (1.0, 8.0, 64.0), 96, 256, 6
+    salts = [3, 0x5EED, 2**32 - 5, 7, 11, 0x5EED]
+    card = TenantBank(ls, n_tenants=T, k=k, chunk=chunk, salts=salts, evict_every=evict_every)
+    cpu = TenantBank(ls, n_tenants=T, k=k, chunk=chunk, salts=salts, evict_every=evict_every,
+                     device="cpu")
+    lone = [MultiSampler(ls, k=k, chunk=chunk, salt=s, evict_every=evict_every) for s in salts]
+    rng = np.random.default_rng(evict_every)
+    for _ in range(10):
+        for t in range(T):
+            if t == 4 or rng.random() < 0.3:
+                continue
+            n = int(rng.integers(1, 3 * chunk))
+            keys = (rng.zipf(1.3, n) % 500).astype(np.int64)
+            w = (rng.random(n) * 2 + 0.1).astype(np.float32)
+            for b in (card, cpu):
+                b.observe(t, keys, w)
+            lone[t].observe(keys, w)
+        s0, a0 = sops.sort_with_perm_cuda.launches, cops.capscore_agg_cuda.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            active = card.tick()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cpu.tick()
+        launched = (sops.sort_with_perm_cuda.launches - s0, cops.capscore_agg_cuda.launches - a0)
+        assert launched == ((1, 1) if active else (0, 0))
+    fa = card.finalize_all()
+    for t in range(T):
+        fs = lone[t].finalize()
+        for l in ls:
+            assert np.array_equal(fa[t][l].keys, fs[l].keys)
+            assert np.array_equal(fa[t][l].counts, fs[l].counts)
+            assert fa[t][l].tau == fs[l].tau
+        got, want = card.tenant_state_dict(t), lone[t].state_dict()
+        for name in want:
+            assert torch.equal(got[name], want[name]), (t, name)
+    got, want = card.state_dict(), cpu.state_dict()
+    for name in want:
+        g, w = got[name].cpu().numpy(), want[name].numpy()
+        if name in ("seed", "tau", "bk_seeds"):
+            np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=name)
+        elif name == "counts":
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=4 * float(np.spacing(np.float32(2.1))),
+                                       err_msg=name)
+        else:
+            assert np.array_equal(g, w), name
