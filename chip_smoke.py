@@ -134,6 +134,33 @@ Phases, each of which fails the run if it fails:
              share over 8 profiled steps after the measured ones,
              ``resident_bytes``, ``max_memory_allocated``, with the card's
              name and power limit.
+10. samplers — the paper's samplers over phase 3's stream (2^24 Zipf(1.2)
+             keys on 2^22 ids, from ``--seed``); a cut of a size is logged
+             on its line.  10a: ``IncrementalSampler(l=16, k=4096)`` in
+             batches of 2^20 bit-identical to ``sample_fixed_k``, the cap_16
+             estimate within 5 stderr of exact, one ``capscore_agg`` and one
+             ``chunksort`` launch per chunk step, elements/s, ms per step,
+             8 profiled steps, and an ``evict_every=4`` sampler finalizing
+             <= k keys.  10b: ``sample_fixed_tau`` and
+             ``IncrementalSampler(tau=...)`` bit-identical for continuous and
+             discrete (l=16), distinct (1) and sh (1e9) at the tau whose
+             expected sample is 4096 keys (capacity 16384); the first 2^18
+             elements against Algorithms 4 / 2 on the host (keys equal;
+             counts within rtol 1e-4 / atol 1e-3, hash-only exact); a small
+             capacity raises at finalize.  10c: ``sample_two_pass(k=4096)``
+             for the four kinds: pass-II weights equal to the exact counts,
+             the first 2^18 elements equal to Algorithm 1 (keys, tau and
+             counts within rtol 1e-5), ``capscore`` once per 2^20 elements.
+             10d: ``StatsConfig()``'s grid over the first 2^22 elements,
+             ``update_multi(reference=True)`` beside the fused route chunk
+             by chunk: keys, kb, seeds, steps and summaries exact, counts
+             and tau within rtol 1e-5, a lane whose keys split dropped only
+             when every differing key has a deciding eviction race within 4
+             ulp; one ``capscore_multi`` launch per chunk step.  10e:
+             ``multiobjective_sample(k=4096, ls=(1, 16, 256, 4096))``: the
+             card's ``per_key_randomness`` against numpy (keys and hx
+             exact, y and wx within 2 f64 ulp), |S_L| against k ln n, the
+             relative error of ``estimate_multi`` for cap_T.
 
 The results and the profile are also written as JSON to ``chiprun_out/``
 in the checkout (git-ignored).
@@ -141,7 +168,8 @@ in the checkout (git-ignored).
 It imports nothing of JAX or of the reference package ``repro``.  It exits
 non-zero without a CUDA device, and when run without the rest of the repo.
 The card's name and power limit (``nvidia-smi``) come two lines before the
-last, the ``kernels`` JSON on the line before the last, and the last line is
+last, the ``kernels`` JSON on the line before the last (each kernel's
+launches on its path, and ``launches_phase10`` on 10a-10d's), and the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -248,6 +276,20 @@ def _device_profile(fn, calls: int, tag: str, others: tuple = ()) -> dict:
             "top": rows[:8]}
 
 
+def _kernel_device_us(fn, calls: int, tag: str, tries: int = 3) -> float:
+    """Device µs per launch of the kernels whose name holds ``tag`` over
+    ``calls`` calls of ``fn`` (``_device_profile``), profiled again when the
+    trace holds none of them: ``torch.profiler`` now and then records no
+    device event of a window on an H100 host.  Raises when every try
+    misses."""
+    for _ in range(tries):
+        us = _device_profile(fn, calls, tag)["kernel_device_us_per_launch"]
+        if us is not None:
+            return us
+    raise AssertionError(f"torch.profiler recorded no {tag} launch in {tries} windows "
+                         f"of {calls} calls")
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -295,8 +337,8 @@ def check_chunksort(device, rng) -> dict:
     plain = cuda_ms(lambda: ops.sort_with_perm_ref(keys))
     library = cuda_ms(lambda: torch.sort(keys, stable=True))
     # device time: the kernel's own, and all the kernels of one torch.sort call
-    dev_us = _device_profile(lambda: ops.sort_with_perm_cuda(keys), 50,
-                             "sort_chunk")["kernel_device_us_per_launch"]
+    dev_us = _kernel_device_us(lambda: ops.sort_with_perm_cuda(keys), 50,
+                               "sort_chunk")
     lib_prof = _device_profile(lambda: torch.sort(keys, stable=True), 50, "")
     lib_dev_us = lib_prof["device_busy_ms_per_call"] * 1e3
     # bytes: read keys once, write ks (int32) and perm (int64); operations:
@@ -424,12 +466,12 @@ def check_capscore_agg(device, rng) -> tuple[dict, dict]:
     C, L = args[0].shape[0], args[4].shape[0]
     ms = cuda_ms(lambda: ops.capscore_agg_cuda(*args))
     plain = cuda_ms(lambda: ops.capscore_agg_ref(*args))
-    dev_us = _device_profile(lambda: ops.capscore_agg_cuda(*args), 50,
-                             "capscore_agg_kernel")["kernel_device_us_per_launch"]
+    dev_us = _kernel_device_us(lambda: ops.capscore_agg_cuda(*args), 50,
+                               "capscore_agg_kernel")
     # the old one-warp-per-key design's worst case: one key in all 2048
     one = _agg_inputs(device, rng, 2048, 4, "one_key")
-    one_us = _device_profile(lambda: ops.capscore_agg_cuda(*one), 50,
-                             "capscore_agg_kernel")["kernel_device_us_per_launch"]
+    one_us = _kernel_device_us(lambda: ops.capscore_agg_cuda(*one), 50,
+                               "capscore_agg_kernel")
     # bytes: ks/eids/ws/seg once (16 B/element), ls/taus, and the outputs
     # (w_total f32, then entered u8 + three f32 columns per lane);
     # operations: ~40 integer ops for the element hash, ~30 for log1p and
@@ -488,8 +530,8 @@ def check_chunksort_rows(device, rng) -> dict:
     for B in (1, 256):
         k = torch.from_numpy(zipf_keys(rng, B * 2048, 1.2, 1 << 22).reshape(B, 2048)
                              .astype(np.int32)).to(device)
-        us = _device_profile(lambda: ops.sort_with_perm_cuda(k), 20,
-                             "sort_chunk")["kernel_device_us_per_launch"]
+        us = _kernel_device_us(lambda: ops.sort_with_perm_cuda(k), 20,
+                               "sort_chunk")
         b, by = bound_ms(16 * B * 2048, 0)
         out[f"rows_b{B}_device_us_per_chunk"] = us / B
         out[f"rows_b{B}_bound_ms"] = b
@@ -568,8 +610,8 @@ def check_capscore_agg_batch(device, rng) -> dict:
     out = {"batch_max_abs_err": err}
     for B in (1, 256):  # the main path's Zipf chunks
         args, _ = _agg_batch_inputs(device, rng, B, 2048, 4, edges=False)
-        us = _device_profile(lambda: ops.capscore_agg_cuda(*args), 20,
-                             "capscore_agg_kernel")["kernel_device_us_per_launch"]
+        us = _kernel_device_us(lambda: ops.capscore_agg_cuda(*args), 20,
+                               "capscore_agg_kernel")
         C, L = 2048, 4
         b, by = bound_ms(B * (16 * C + 4 * L + 4 + 4 * C + 13 * L * C) + 4 * L,
                          B * C * (70 + 10 * L))
@@ -637,7 +679,7 @@ def check_capscore_multi(device, rng) -> dict:
         ms = cuda_ms(call, *((50, 5) if N > 65536 else (200, 20)))
         plain = cuda_ms(lambda: ops.capscore_multi_ref(*elems, ls, taus, SALT),
                         *((20, 3) if N > 65536 else (200, 20)))
-        dev_us = _device_profile(call, 20, "capscore_multi_kernel")["kernel_device_us_per_launch"]
+        dev_us = _kernel_device_us(call, 20, "capscore_multi_kernel")
         # bytes: keys/eids/weights once (12 B/element), ls/taus, and four [L, N]
         # outputs of 4 B; operations: ~40 integer ops per element hash (two),
         # ~30 for log1p and the divisions, ~10 per lane
@@ -688,7 +730,7 @@ def check_capscore(device, rng) -> dict:
         ms = cuda_ms(call, *((50, 5) if N > 65536 else (200, 20)))
         plain = cuda_ms(lambda: ops.capscore_ref(*elems, 16.0, float("inf"), SALT),
                         *((20, 3) if N > 65536 else (200, 20)))
-        dev_us = _device_profile(call, 20, "capscore_kernel")["kernel_device_us_per_launch"]
+        dev_us = _kernel_device_us(call, 20, "capscore_kernel")
         # bytes: keys/eids/weights read once and score/delta/entry written
         # once, 12 B each per element; operations: ~120 per element
         b, by = bound_ms(24 * N, N * 120)
@@ -829,7 +871,7 @@ def check_flash_attention(device, seed: int) -> tuple[list, dict]:
     q32, k32, v32 = inputs.pop("float32")
     f32_call = lambda: ops.flash_attention_cuda(q32, k32, v32, causal=True)  # noqa: E731
     tf32_ms = cuda_ms(f32_call, iters=10, warmup=2)
-    tf32_dev_us = _device_profile(f32_call, 3, "flash_tf32_kernel")["kernel_device_us_per_launch"]
+    tf32_dev_us = _kernel_device_us(f32_call, 3, "flash_tf32_kernel")
     # the FMA kernel this one replaced, and the f32 yardstick: SDPA on the
     # same f32 views (TF32 off, exact_f32)
     fma_ms = cuda_ms(lambda: ops.flash_attention_fma(q32, k32, v32, causal=True), iters=3,
@@ -847,8 +889,8 @@ def check_flash_attention(device, seed: int) -> tuple[list, dict]:
     q, k, v = inputs.pop("bfloat16")
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: ops.flash_attention_cuda(q, k, v, causal=True), iters=20, warmup=3)
-    dev_us = _device_profile(lambda: ops.flash_attention_cuda(q, k, v, causal=True), 5,
-                             "flash_tc_kernel")["kernel_device_us_per_launch"]
+    dev_us = _kernel_device_us(lambda: ops.flash_attention_cuda(q, k, v, causal=True), 5,
+                               "flash_tc_kernel")
     plain = cuda_ms(lambda: ops.attention_ref(q, k, v, causal=True), iters=2, warmup=1)
     torch.cuda.empty_cache()
     library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -1479,13 +1521,13 @@ def _counters():
             "capscore_agg": cops.capscore_agg_cuda, "chunksort": sops.sort_with_perm_cuda}
 
 
-def _counted(fn):
+def _counted(fn, barrier=True):
     """``(fn(), seconds, launches)``: every kernel count set to 0 just
     before ``fn`` and read just after."""
     counters = _counters()
     for c in counters.values():
         c.launches = 0
-    out, sec = _synced(fn)
+    out, sec = _synced(fn, barrier)
     return out, sec, {name: c.launches for name, c in counters.items()}
 
 
@@ -2602,6 +2644,501 @@ def run_multitenant_serving(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's samplers (single sketch, one-shot, two-pass, the
+# reference multi-l route, the multi-objective sample)
+# ---------------------------------------------------------------------------
+
+SAMPLER_N = 1 << 24         # phase 3's stream
+SAMPLER_BATCH = 1 << 20     # observe() batches, as phase 3
+SAMPLER_K = 4096
+SAMPLER_L = 16.0
+SAMPLER_CHUNK = 2048
+SAMPLER_PROFILE_STEPS = 8
+ORACLE_N = 1 << 18          # the prefix held against the sequential oracles
+SAMPLER_KINDS = {"continuous": 16.0, "discrete": 16, "distinct": 1, "sh": 1e9}
+FIXED_TAU_CAPACITY = 16384
+# Elements per kind of 10b and 10c (each cut is logged on its line).  10a
+# is never cut: uncut, with its evict_every=4 sampler, it takes ~115 s or
+# more on an H100 by itself, so phase 10 cannot keep to ~120 s.  The cuts
+# go in this order: 10c's hash-only kinds, then 10d's length, then 10b's
+# hash-only kinds.  A fixed-tau step of a hash-only kind (3.3-5.3 ms) costs
+# 1.5-2.5x a continuous one (2.2 ms): its element hashes are int64
+# emulation in torch, many launches each, and 10b runs each kind twice (one
+# pass per entry point), so those three at the full stream would add
+# ~200 s to the script.
+FIXED_TAU_N = {"continuous": 1 << 24, "discrete": 1 << 20, "distinct": 1 << 20,
+               "sh": 1 << 20}
+TWO_PASS_N = {"continuous": 1 << 24, "discrete": 1 << 20, "distinct": 1 << 20,
+              "sh": 1 << 20}
+MULTI_REF_FULL = 1 << 22    # 10d: the reference route's prefix at full size
+MULTI_REF_N = 1 << 20       # ... cut
+MULTI_REF_BLOCK = 64        # chunks between lockstep comparisons in 10d
+MO_LS = (1.0, 16.0, 256.0, 4096.0)
+MAX_ULP = 4
+
+
+def _stderr(res, fn) -> float:
+    """The HT plug-in standard error of ``estimate(res, fn)``, the query
+    engine's: sqrt(sum a_x^2 (1 - p_x))."""
+    import numpy as np
+    from repro_torch.core import estimators
+
+    a = estimators.estimate_per_key(res, fn)
+    return float(np.sqrt(np.square(a) @ (1.0 - estimators.inclusion_per_key(res))))
+
+
+def _same_result(a, b) -> bool:
+    import numpy as np
+
+    return (np.array_equal(a.keys, b.keys) and np.array_equal(a.counts, b.counts)
+            and np.float32(a.tau) == np.float32(b.tau))
+
+
+def _exact_counts(keys, ukeys, counts):
+    import numpy as np
+
+    return counts[np.searchsorted(ukeys, keys)]
+
+
+def _sampler_fixed_k(keys, ukeys, counts) -> dict:
+    """10a: ``IncrementalSampler(l=16, k=4096)`` over the stream, against
+    ``sample_fixed_k``; the estimate; launches; the profile; E = 4."""
+    import numpy as np
+    from repro_torch.core import estimators, freqfns
+    from repro_torch.core import incremental as TI
+    from repro_torch.core import vectorized as TV
+
+    n, chunk = len(keys), SAMPLER_CHUNK
+    steps = n // chunk
+    s = TI.IncrementalSampler(SAMPLER_L, k=SAMPLER_K, chunk=chunk, salt=SALT)
+
+    def ingest():
+        for lo in range(0, n, SAMPLER_BATCH):
+            s.observe(keys[lo:lo + SAMPLER_BATCH])
+
+    _, t_obs, launches = _counted(ingest, barrier=False)
+    if launches["capscore_agg"] != steps:
+        raise AssertionError(f"10a: capscore_agg launched {launches['capscore_agg']} times "
+                             f"for {steps} chunk steps")
+    if launches["chunksort"] < steps:
+        raise AssertionError(f"10a: chunksort launched {launches['chunksort']} times for "
+                             f"{steps} chunk steps")
+    res, t_fin = _synced(s.finalize, barrier=False)
+    one, t_one = _synced(lambda: TV.sample_fixed_k(keys, k=SAMPLER_K, l=SAMPLER_L,
+                                                   chunk=chunk, salt=SALT), barrier=False)
+    if not _same_result(res, one):
+        raise AssertionError("10a: IncrementalSampler and sample_fixed_k differ")
+    fn = freqfns.cap(SAMPLER_L)
+    est, se = estimators.estimate(res, fn), _stderr(res, fn)
+    exact = freqfns.exact_statistic(fn, counts)
+    z = abs(est - exact) / se
+    if not (len(res.keys) == SAMPLER_K and np.isfinite(est) and z <= 5.0):
+        raise AssertionError(f"10a: cap_16 estimate {est} is {z:.2f} stderr from exact "
+                             f"{exact} ({len(res.keys)} keys)")
+    # a warm sampler's chunk steps under the profiler
+    warm = iter(range(0, SAMPLER_PROFILE_STEPS * chunk, chunk))
+    prof = _device_profile(lambda: s.observe(keys[next(warm):][:chunk]),
+                           SAMPLER_PROFILE_STEPS, "capscore_agg_kernel", ("sort_chunk",))
+    # evict_every = 4: the lazily evicted table projects to <= k at finalize
+    s4 = TI.IncrementalSampler(SAMPLER_L, k=SAMPLER_K, chunk=chunk, salt=SALT, evict_every=4)
+    _, t_e4 = _synced(lambda: [s4.observe(keys[lo:lo + SAMPLER_BATCH])
+                               for lo in range(0, n, SAMPLER_BATCH)], barrier=False)
+    live4 = int((s4.state.table.keys != EMPTY).sum())
+    res4 = s4.finalize()
+    if len(res4.keys) > SAMPLER_K:
+        raise AssertionError(f"10a: the evict_every=4 sampler finalized {len(res4.keys)} keys")
+    out = {"elements": n, "chunk_steps": steps, "observe_s": t_obs,
+           "elements_per_s": n / t_obs, "chunk_step_ms": t_obs / steps * 1e3,
+           "finalize_ms": t_fin * 1e3, "sample_fixed_k_s": t_one,
+           "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "cap16_estimate": est, "cap16_exact": exact, "cap16_stderr": se, "abs_z": z,
+           "tau": res.tau, "profile": prof, "e4_observe_s": t_e4,
+           "e4_live_keys": live4, "e4_final_keys": len(res4.keys)}
+    log(f"phase 10a (IncrementalSampler(l={SAMPLER_L:g}, k={SAMPLER_K}) over {n} elements in batches of "
+        f"{SAMPLER_BATCH}): {out['elements_per_s']:.4g} elements/s, "
+        f"{out['chunk_step_ms']:.4f} ms per chunk step, finalize {out['finalize_ms']:.2f} ms; "
+        f"bit-identical to sample_fixed_k ({t_one:.1f} s); launches per step "
+        f"{out['launches_per_step']}; cap_16 est {est:.6g} exact {exact:.6g} stderr {se:.4g} "
+        f"|z| {z:.2f}; profile over {prof['calls']} steps: {prof['wall_ms_per_call']:.3f} ms "
+        f"per step, {prof['kernel_launches_per_call']:.1f} kernel launches, device busy "
+        f"{100 * prof['device_busy_share']:.2f}%, capscore_agg {prof['tag_launches_per_call']:g}"
+        f" and chunksort {prof['other_launches_per_call']['sort_chunk']:g} per step; "
+        f"evict_every=4 over {n} ({t_e4:.1f} s): {live4} live keys, finalize {len(res4.keys)}")
+    return out
+
+
+def _tau_for_size(kind: str, l, counts, size: float) -> float:
+    """The threshold whose expected sample size over keys of the exact
+    frequencies ``counts`` is ``size`` (bisection in log tau), rounded to
+    f32 so the card and the f64 oracles compare against the same value."""
+    import math
+
+    import numpy as np
+    from repro_torch.core import estimators
+    from repro_torch.core.samplers import SampleResult
+
+    def expected(tau):
+        return float(np.sum(estimators._inclusion_prob(
+            SampleResult(None, None, tau, l, kind), counts)))
+
+    lo, hi = math.log(1e-12), 0.0
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if expected(math.exp(mid)) < size else (lo, mid)
+    return float(np.float32(math.exp(0.5 * (lo + hi))))
+
+
+def _hold_oracle(tag: str, got, want, continuous: bool) -> float:
+    """The reference's tolerances of a chunked sample against its
+    sequential oracle (``tests/test_equivalence.py``): keys equal;
+    continuous counts within rtol 1e-4 / atol 1e-3, the rest exact.
+    Returns the largest count difference."""
+    import numpy as np
+
+    if not np.array_equal(got.keys, want.keys):
+        raise AssertionError(f"{tag}: {len(np.setxor1d(got.keys, want.keys))} keys differ "
+                             f"from the sequential oracle")
+    diff = np.abs(got.counts - np.asarray(want.counts, np.float64))
+    ok = (np.all(diff <= 1e-3 + 1e-4 * np.abs(want.counts)) if continuous
+          else np.array_equal(got.counts, np.asarray(want.counts, np.float64)))
+    if not ok:
+        raise AssertionError(f"{tag}: counts differ from the oracle's by up to {diff.max()}")
+    return float(diff.max()) if len(diff) else 0.0
+
+
+def _sampler_fixed_tau(keys, ukeys, counts) -> dict:
+    """10b: ``sample_fixed_tau`` and ``IncrementalSampler(tau=...)`` for the
+    four kinds; a prefix against Algorithms 4 / 2; an overflow raises."""
+    import math
+
+    import numpy as np
+    from repro_torch.core import incremental as TI
+    from repro_torch.core import samplers as TS
+    from repro_torch.core import vectorized as TV
+
+    out = {}
+    for kind, l in SAMPLER_KINDS.items():
+        n = FIXED_TAU_N[kind]
+        stream = keys[:n]
+        run_counts = counts if n == len(keys) else np.unique(stream, return_counts=True)[1]
+        tau = _tau_for_size(kind, l, run_counts, SAMPLER_K)
+        one, t_one, launches = _counted(lambda: TV.sample_fixed_tau(
+            stream, tau=tau, l=l, kind=kind, chunk=SAMPLER_CHUNK,
+            capacity=FIXED_TAU_CAPACITY, salt=SALT), barrier=False)
+        s = TI.IncrementalSampler(l, tau=tau, kind=kind, chunk=SAMPLER_CHUNK,
+                                  capacity=FIXED_TAU_CAPACITY, salt=SALT)
+
+        def ingest():
+            for lo in range(0, n, SAMPLER_BATCH):
+                s.observe(stream[lo:lo + SAMPLER_BATCH])
+
+        _, t_inc, _ = _counted(ingest, barrier=False)
+        if not _same_result(s.finalize(), one):
+            raise AssertionError(f"10b {kind}: IncrementalSampler and sample_fixed_tau differ")
+        steps = -(-n // SAMPLER_CHUNK)
+        if launches["capscore_agg"] != (steps if kind == "continuous" else 0):
+            raise AssertionError(f"10b {kind}: capscore_agg launched {launches['capscore_agg']} "
+                                 f"times for {steps} chunk steps")
+        head = keys[:ORACLE_N]
+        got = TV.sample_fixed_tau(head, tau=tau, l=l, kind=kind, chunk=SAMPLER_CHUNK,
+                                  capacity=FIXED_TAU_CAPACITY, salt=SALT)
+        if kind == "continuous":
+            want = TS.alg4_fixed_tau_continuous(head, None, tau, l=l, salt=SALT)
+        else:
+            want = TS.alg2_fixed_tau_discrete(head, tau, l=math.inf if kind == "sh" else l,
+                                              salt=SALT, kind=kind)
+        worst = _hold_oracle(f"10b {kind}", got, want, kind == "continuous")
+        out[kind] = {"elements": n, "tau": tau, "sample_size": len(one.keys),
+                     "sample_fixed_tau_s": t_one, "incremental_s": t_inc,
+                     "chunk_step_ms": t_one / steps * 1e3, "launches": launches,
+                     "oracle_elements": len(head), "oracle_keys": len(want.keys),
+                     "oracle_worst_count_diff": worst}
+        log(f"phase 10b {kind} (l={l:g}, tau={tau:.6g} for an expected {SAMPLER_K} keys, "
+            f"{n} elements{'' if n == len(keys) else ', cut from ' + str(len(keys))}): "
+            f"{len(one.keys)} keys; sample_fixed_tau {t_one:.2f} s "
+            f"({out[kind]['chunk_step_ms']:.4f} ms per chunk step), IncrementalSampler "
+            f"{t_inc:.2f} s, bit-identical; launches {launches}; the first {len(head)} "
+            f"elements equal {'Algorithm 4' if kind == 'continuous' else 'Algorithm 2'} "
+            f"({len(want.keys)} keys, worst count difference {worst:.3g})")
+    small = TI.IncrementalSampler(SAMPLER_KINDS["continuous"], tau=out["continuous"]["tau"],
+                                  chunk=SAMPLER_CHUNK, capacity=64, salt=SALT)
+    small.observe(keys[:ORACLE_N])
+    try:
+        small.finalize()
+    except RuntimeError as e:
+        log(f"phase 10b: capacity 64 over {ORACLE_N} elements raises at finalize: {e}")
+    else:
+        raise AssertionError("10b: a fixed-tau capacity overflow did not raise at finalize")
+    return out
+
+
+def _sampler_two_pass(keys, ukeys, counts) -> dict:
+    """10c: ``sample_two_pass(k=4096)`` for the four kinds: exact pass-II
+    weights, a prefix against Algorithm 1, ``capscore`` per SCORE_BATCH."""
+    import numpy as np
+    from repro_torch.core import samplers as TS
+    from repro_torch.core import vectorized as TV
+    from repro_torch.core.distributed import SCORE_BATCH
+
+    out = {}
+    for kind, l in SAMPLER_KINDS.items():
+        n = TWO_PASS_N[kind]
+        stream = keys[:n]
+        res, sec, launches = _counted(lambda: TV.sample_two_pass(
+            stream, k=SAMPLER_K, l=l, kind=kind, chunk=SAMPLER_CHUNK, salt=SALT),
+            barrier=False)
+        want_calls = -(-n // SCORE_BATCH) if kind == "continuous" else 0
+        if launches["capscore"] != want_calls:
+            raise AssertionError(f"10c {kind}: capscore launched {launches['capscore']} times, "
+                                 f"not {want_calls}")
+        uk, uc = (ukeys, counts) if n == len(keys) else np.unique(stream, return_counts=True)
+        if not (len(res.keys) == SAMPLER_K
+                and np.array_equal(res.counts, _exact_counts(res.keys, uk, uc))):
+            raise AssertionError(f"10c {kind}: pass-II weights differ from the exact counts")
+        head = keys[:ORACLE_N]
+        got = TV.sample_two_pass(head, k=SAMPLER_K, l=l, kind=kind, chunk=SAMPLER_CHUNK,
+                                 salt=SALT)
+        want = TS.alg1_two_pass(head, None, SAMPLER_K, l=l, kind=kind, salt=SALT)
+        order = np.argsort(want.keys)
+        if not (np.array_equal(got.keys, want.keys[order])
+                and np.allclose(got.tau, want.tau, rtol=1e-5, atol=0)
+                and np.allclose(got.counts, want.counts[order], rtol=1e-5, atol=0)):
+            raise AssertionError(f"10c {kind}: differs from Algorithm 1 on the first "
+                                 f"{len(head)} elements (tau {got.tau} vs {want.tau})")
+        out[kind] = {"elements": n, "seconds": sec, "elements_per_s": n / sec,
+                     "tau": res.tau, "launches": launches,
+                     "oracle_elements": len(head), "oracle_tau": want.tau}
+        log(f"phase 10c {kind} (l={l:g}, k={SAMPLER_K}, {n} elements"
+            f"{'' if n == len(keys) else ', cut from ' + str(len(keys))}): {sec:.2f} s "
+            f"({n / sec:.4g} elements/s), tau {res.tau:.6g}; pass-II weights equal the exact "
+            f"counts; launches {launches}; the first {len(head)} elements equal Algorithm 1 "
+            f"(tau {want.tau:.6g})")
+    return out
+
+
+def _ulp_gap(a, b):
+    """Elementwise distance of f32 values in units in the last place."""
+    import numpy as np
+
+    def ordered(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return np.where(a == b, 0, np.abs(ordered(a) - ordered(b)))
+
+
+def _lockstep_flags(f, r):
+    """Per lane, on the device with one copy back: do the fused state ``f``
+    and the reference-route state ``r`` hold the same keys, and within the
+    capscore_agg contract the rest?  (key sets; kb, seed and step exact;
+    counts within rtol 1e-5 plus 4 ulp of a unit weight; tau within rtol
+    1e-5), and are their summaries (keys and seeds) equal?  The reference
+    route leaves its evicted slots EMPTY in place: its rows are sorted by
+    key first."""
+    import torch
+
+    rtol, atol = 1e-5, MAX_ULP * 2.0**-23
+    o = torch.sort(r.table.keys, dim=-1, stable=True).indices
+    rk, rc, rkb, rsd = (x.gather(-1, o) for x in r.table[:4])
+    fk, fc, fkb, fsd = f.table[:4]
+    keys = (fk == rk).all(-1)
+    rest = (((fkb == rkb) & (fsd == rsd)).all(-1)
+            & ((fc - rc).abs() <= atol + rtol * rc.abs()).all(-1)
+            & (f.table.step == r.table.step)
+            & ((f.table.tau == r.table.tau)
+               | ((f.table.tau - r.table.tau).abs() <= rtol * r.table.tau.abs())))
+    bk = (f.bk_keys == r.bk_keys).all(-1) & (f.bk_seeds == r.bk_seeds).all(-1)
+    return torch.stack([keys, rest, bk]).cpu().numpy()
+
+
+def _explain_split(before, after_f, after_r, ck, cw, spec, lanes) -> list:
+    """One record ``(gap_ulp, lane, key, pair)`` per key on which the two
+    routes' tables differ after one chunk step, in ``lanes``: the key's
+    eviction race z in the fused route's merged table against the nearest z
+    on the other side of the cut (inf where the key is not in that table:
+    an entry difference, which no float pair explains here, since both
+    routes compute Delta alike)."""
+    import numpy as np
+    from repro_torch.core import vectorized as TV
+    from repro_torch.core.segments import chunk_order
+    from repro_torch.kernels.capscore.ops import capscore_agg
+
+    st = before
+    order = chunk_order(ck, spec.eids(st.n_seen, ck.device), cw)
+    w_total, entered, contrib, kb_min, min_score = capscore_agg(
+        order.ks, order.eids, order.ws, order.seg, st.l, st.table.tau, st.salt)
+    merged = TV.fixed_k_merge(st.table, TV.ChunkAgg(order.ukeys, w_total, entered, contrib,
+                                                    kb_min, min_score))
+    valid, z, *_ = TV._evict_z(merged.keys, merged.counts, merged.kb, merged.tau, st.l,
+                               st.salt, merged.step)
+    mkeys, z, valid = merged.keys.cpu().numpy(), z.cpu().numpy(), valid.cpu().numpy()
+    fk, rk = after_f.table.keys.cpu().numpy(), after_r.table.keys.cpu().numpy()
+    records = []
+    for j in sorted(lanes):
+        kept = fk[j][fk[j] != EMPTY]
+        side = np.isin(mkeys[j], kept) & valid[j]
+        for x in set(kept.tolist()) ^ set(rk[j][rk[j] != EMPTY].tolist()):
+            at = np.nonzero((mkeys[j] == x) & valid[j])[0]
+            if not len(at):
+                records.append((np.inf, j, x, "not in the merged table (entry)"))
+                continue
+            other = valid[j] & (side != side[at[0]])
+            gaps = _ulp_gap(np.broadcast_to(z[j, at[0]], z[j][other].shape), z[j][other])
+            m = int(np.argmin(gaps)) if gaps.size else None
+            records.append((float(gaps[m]) if gaps.size else np.inf, j, x,
+                            f"z={z[j, at[0]]!r} vs z={z[j][other][m] if gaps.size else None!r}"
+                            " across tau*"))
+    return sorted(records, key=lambda r: -r[0])
+
+
+def _sampler_multi_reference(keys) -> dict:
+    """10d: ``StatsConfig()``'s grid through ``update_multi(reference=True)``
+    and the fused ``update_multi``, chunk by chunk in lockstep."""
+    import numpy as np
+    import torch
+    from repro_torch.core import incremental as TI
+
+    chunk, n = SAMPLER_CHUNK, MULTI_REF_N
+    stF, spec = TI.init_multi_state(MO_LS, k=SAMPLER_K, chunk=chunk, salt=SALT)
+    stR, _ = TI.init_multi_state(MO_LS, k=SAMPLER_K, chunk=chunk, salt=SALT)
+    dev = stF.l.device
+    kd = torch.from_numpy(keys[:n].astype(np.int32)).to(dev)
+    wd = torch.ones(n, device=dev)
+    lanes, diverged = set(range(len(MO_LS))), {}
+    t_f = t_r = 0.0
+    launches = dict.fromkeys(_counters(), 0)
+    worst_gap = 0.0
+    for c in range(n // chunk):
+        ck, cw = kd[c * chunk:(c + 1) * chunk], wd[c * chunk:(c + 1) * chunk]
+        f1, sec, _ = _counted(lambda: TI.update_multi(stF, ck, cw, spec), barrier=False)
+        t_f += sec
+        r1, sec, la = _counted(lambda: TI.update_multi(stR, ck, cw, spec, reference=True),
+                               barrier=False)
+        t_r += sec
+        launches = {k: launches[k] + la[k] for k in launches}
+        keys_eq, rest_ok, bk_eq = _lockstep_flags(f1, r1)
+        if not bk_eq.all():
+            raise AssertionError(f"10d chunk {c}: summaries differ in lanes "
+                                 f"{np.nonzero(~bk_eq)[0].tolist()}")
+        split = {j for j in lanes if not keys_eq[j]}
+        bad = [j for j in lanes - split if not rest_ok[j]]
+        if bad:
+            raise AssertionError(f"10d chunk {c}: lanes {bad} hold the same keys but differ "
+                                 "beyond the capscore_agg contract")
+        if split:
+            records = _explain_split(stF, f1, r1, ck, cw, spec, split)
+            gap, j, x, pair = records[0]
+            if gap > MAX_ULP:
+                raise AssertionError(f"10d chunk {c}: lane {j} key {x} diverged unexplained; "
+                                     f"nearest deciding pair {pair}, {gap} ulp")
+            worst_gap = max(worst_gap, gap)
+            lanes -= split
+            diverged.update({j: c for j in split})
+            log(f"phase 10d: lanes {sorted(split)} diverged at chunk {c}, each differing key "
+                f"explained by a deciding pair within {gap:g} ulp ({pair}); dropped")
+        stF, stR = f1, r1
+    steps = n // chunk
+    if launches["capscore_multi"] != steps:
+        raise AssertionError(f"10d: capscore_multi launched {launches['capscore_multi']} "
+                             f"times for {steps} chunk steps")
+    if not lanes:
+        raise AssertionError("10d: every lane diverged")
+    rf = TI.finalize_multi(stF, spec, ls=MO_LS)
+    rr = TI.finalize_multi(stR, spec, ls=MO_LS)
+    for j in sorted(lanes):
+        a, b = rf[MO_LS[j]], rr[MO_LS[j]]
+        if not (np.array_equal(a.keys, b.keys)
+                and np.allclose(a.counts, b.counts, rtol=1e-5, atol=MAX_ULP * 2.0**-23)
+                and np.allclose(a.tau, b.tau, rtol=1e-5, atol=0)):
+            raise AssertionError(f"10d: lane l={MO_LS[j]} finalizes apart")
+    out = {"elements": n, "chunk_steps": steps, "fused_chunk_step_ms": t_f / steps * 1e3,
+           "reference_chunk_step_ms": t_r / steps * 1e3, "reference_launches": launches,
+           "diverged_lanes": {str(MO_LS[j]): c for j, c in diverged.items()},
+           "worst_explained_gap_ulp": worst_gap}
+    log(f"phase 10d (ls={MO_LS}, k={SAMPLER_K}, {n} elements{'' if n == MULTI_REF_FULL else ', cut from ' + str(MULTI_REF_FULL)}, "
+        f"one chunk per call, synced): fused {out['fused_chunk_step_ms']:.4f} ms per chunk "
+        f"step, reference route {out['reference_chunk_step_ms']:.4f} ms; {launches['capscore_multi']}"
+        f" capscore_multi launches for {steps} steps; lanes in lockstep to the end "
+        f"{[MO_LS[j] for j in sorted(lanes)]} (keys, kb, seeds, steps, summaries exact; counts, "
+        f"tau within rtol 1e-5), diverged {out['diverged_lanes']}")
+    return out
+
+
+def _sampler_multiobjective(keys, ukeys, counts) -> dict:
+    """10e: ``multiobjective_sample(k=4096, ls=(1, 16, 256, 4096))``: the
+    card's ``per_key_randomness`` against its numpy plain version, |S_L|
+    against k ln n, the §6.2 estimates of cap_T."""
+    import math
+
+    import numpy as np
+    from repro_torch.core import freqfns
+    from repro_torch.core import multiobjective as TM
+
+    n = len(keys)
+    (uk, hx, y, wx), t_dev = _synced(lambda: TM.per_key_randomness(keys, None, SALT),
+                                     barrier=False)
+    t0 = time.perf_counter()
+    p_uk, p_hx, p_y, p_wx = TM.per_key_randomness_np(keys, None, SALT)
+    t_np = time.perf_counter() - t0
+    if not (np.array_equal(uk, p_uk) and np.array_equal(hx, p_hx)):
+        raise AssertionError("10e: per_key_randomness keys or hx differ from the plain version")
+    ulps = [float(np.max(np.abs(a - b) / np.spacing(np.abs(b)))) for a, b in ((y, p_y), (wx, p_wx))]
+    if max(ulps) > 2:
+        raise AssertionError(f"10e: per_key_randomness y / wx differ by {ulps} f64 ulp")
+    (union, w_u, taus, per_l), t_mo = _synced(
+        lambda: TM.multiobjective_sample(keys, None, SAMPLER_K, MO_LS, salt=SALT), barrier=False)
+    all_l = TM.union_sample_all_l(uk, hx, y, SAMPLER_K)
+    bound = SAMPLER_K * math.log(n)
+    rel = {}
+    for T in MO_LS:
+        est = TM.estimate_multi(freqfns.cap(T), union, w_u, taus)
+        exact = freqfns.exact_statistic(freqfns.cap(T), counts)
+        rel[str(T)] = (est - exact) / exact
+    if not all(np.isfinite(v) for v in rel.values()):
+        raise AssertionError(f"10e: non-finite estimates {rel}")
+    out = {"elements": n, "distinct_keys": len(uk), "per_key_randomness_s": t_dev,
+           "plain_s": t_np, "y_wx_max_ulp": ulps, "multiobjective_sample_s": t_mo,
+           "grid_union_size": len(union), "all_l_union_size": len(all_l),
+           "k_ln_n": bound, "rel_err_cap": rel}
+    log(f"phase 10e (multiobjective_sample, k={SAMPLER_K}, ls={MO_LS}, {n} elements, "
+        f"{len(uk)} keys): per_key_randomness on the card {t_dev:.3f} s (numpy {t_np:.2f} s), "
+        f"keys and hx exact, y / wx within {ulps} ulp; whole sample {t_mo:.2f} s; "
+        f"|S_grid| {len(union)}, |S_L| over all l {len(all_l)} against k ln n = {bound:.0f} "
+        f"(Lemma 6.1); estimate_multi relative error of cap_T {rel}")
+    return out
+
+
+def run_samplers(seed: int) -> dict:
+    """Phase 10 over phase 3's stream: 10a-10e, each kernel's launches on
+    these paths, and the seconds of each part."""
+    import numpy as np
+    from repro_torch.data.streams import zipf_keys
+
+    keys = zipf_keys(np.random.default_rng(seed), SAMPLER_N, 1.2, 1 << 22)
+    ukeys, counts = np.unique(keys, return_counts=True)
+    out, seconds = {}, {}
+    for name, fn, args in (("10a", _sampler_fixed_k, (keys, ukeys, counts)),
+                           ("10b", _sampler_fixed_tau, (keys, ukeys, counts)),
+                           ("10c", _sampler_two_pass, (keys, ukeys, counts)),
+                           ("10d", _sampler_multi_reference, (keys,)),
+                           ("10e", _sampler_multiobjective, (keys, ukeys, counts))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+    paths = {"10a": out["10a"]["launches"],
+             "10b": {k: sum(r["launches"][k] for r in out["10b"].values()) for k in _counters()},
+             "10c": {k: sum(r["launches"][k] for r in out["10c"].values()) for k in _counters()},
+             "10d": out["10d"]["reference_launches"]}
+    out["launches"] = {k: {p: paths[p][k] for p in paths} for k in _counters()}
+    out["seconds"] = seconds
+    log("phase 10 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; launches on its paths {out['launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2665,6 +3202,7 @@ def main(argv=None) -> int:
     lm = timed("7", run_lm_serving, args.seed, device)
     recsys = timed("8", run_recsys_serving, args.seed, device)
     serving = timed("9", run_multitenant_serving, args.seed)
+    samplers = timed("10", run_samplers, args.seed)
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     # segment_sum is on no path: the two-tower pooling, its one user, runs
     # the gather-fused embedding_bag kernel, and phase 8 checks that it
@@ -2682,7 +3220,15 @@ def main(argv=None) -> int:
     for k in kernels[:2]:
         k["bank_launches_per_tick"] = serving["B"]["launches_per_stacked_step"][k["name"]]
         k["launches_phase9"] = {run: serving[run]["launches"][k["name"]] for run in ("A", "B")}
+    # phase 10's paths: each kernel's launches in 10a-10d (0 where a path
+    # does not run it)
+    for k in kernels:
+        k["launches_phase10"] = samplers["launches"].get(
+            k["name"], dict.fromkeys(("10a", "10b", "10c", "10d"), 0))
     idle = [k["name"] for k in kernels if not k["launches"] and k["name"] != "segment_sum"]
+    idle += [f"{name} in {part}" for name, part in (("chunksort", "10a"), ("capscore_agg", "10a"),
+                                                   ("capscore", "10c"), ("capscore_multi", "10d"))
+             if not samplers["launches"][name][part]]
     if idle:
         raise AssertionError(f"kernels launched no time on their paths: {idle}")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -2693,7 +3239,7 @@ def main(argv=None) -> int:
          "segment_sum_serving_shapes": segsum_serving,
          "embedding_bag_serving_shapes": bag_serving, "main_path": main_path,
          "distributed": distributed, "lm_serving": lm, "recsys_serving": recsys,
-         "multitenant_serving": serving,
+         "multitenant_serving": serving, "samplers": samplers,
          "seconds": time.perf_counter() - t_start, "phase_seconds": phase_s},
         indent=1))
     (OUT_DIR / "profile_chunk_step.json").write_text(json.dumps(profile, indent=1))

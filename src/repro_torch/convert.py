@@ -1,5 +1,10 @@
 """Carry state and weights between the reference package and the port.
 
+A reference single-sketch ``SamplerState`` (``init_state`` / ``update``)
+travels as ``{"table": {TableState leaf: array}, "n_seen", "l", "salt"}``
+with numpy leaves of the reference's shapes ([capacity] table columns,
+scalars); in the port it is the L = 1 state ([1, capacity], [1]).
+
 The reference ``MultiSampler.state_dict()`` (and ``StreamStatsService``'s,
 which adds ``exact_ok``) is a flat dict of numpy arrays.  Randomness comes
 only from ``(salt, key, eid)`` hashing, so a state carried across continues
@@ -66,6 +71,46 @@ def state_from_reference(d: dict, *, device) -> dict[str, torch.Tensor]:
 def state_to_reference(d: dict) -> dict[str, np.ndarray]:
     """This package's state dict as the reference's: numpy arrays."""
     return {name: _host(v) for name, v in d.items()}
+
+
+TABLE_LEAVES = ("keys", "counts", "kb", "seed", "tau", "step", "overflow")
+_SCALARS = {"n_seen": np.int32, "l": np.float32, "salt": np.uint32}
+
+
+def _checked(name, v, dtype) -> np.ndarray:
+    a = _host(v)
+    if a.dtype != dtype:
+        raise TypeError(f"state leaf {name!r} is {a.dtype}, expected {np.dtype(dtype)}")
+    return a
+
+
+def single_state_from_reference(d: dict, *, device):
+    """A reference single-sketch state (the dict of numpy leaves described
+    above) as the port's ``SamplerState``: the L = 1 table on ``device``;
+    the stream position and salt as host ints, ``l`` as f32 [1]."""
+    # imported here: core.incremental imports this module
+    from .core.incremental import SamplerState
+    from .core.vectorized import TableState
+
+    # a leading lane axis of 1: [capacity] -> [1, capacity], scalars -> [1]
+    table = {name: torch.from_numpy(np.array(_checked(name, d["table"][name],
+                                                      _LEAVES[name][0]))[None]).to(device)
+             for name in TABLE_LEAVES}
+    scal = {name: _checked(name, d[name], dt) for name, dt in _SCALARS.items()}
+    return SamplerState(
+        table=TableState(**table),
+        n_seen=int(scal["n_seen"]),
+        l=torch.from_numpy(scal["l"].reshape(1).copy()).to(device),
+        salt=int(scal["salt"]))
+
+
+def single_state_to_reference(state) -> dict:
+    """The port's single-sketch ``SamplerState`` as the reference's: the
+    dict of numpy leaves described above (squeezed to [capacity] and
+    scalars)."""
+    table = {name: _host(getattr(state.table, name))[0] for name in TABLE_LEAVES}
+    return {"table": table, "n_seen": np.int32(state.n_seen),
+            "l": _host(state.l)[0], "salt": np.uint32(state.salt)}
 
 
 def _tensor_from_np(a: np.ndarray, device) -> torch.Tensor:

@@ -307,24 +307,33 @@ def pass1_shard(keys_shard, weights_shard, *, kind, l, salt, k, chunk,
                 merge="tree", group=None):
     """Per-rank pass I over the local stream shard (int32 keys, f32 weights
     on the device) plus the cross-rank merge: the bottom-(k+1) (key, seed)
-    summary of the whole stream, on every rank.  The shard is scored
-    (``element_scores``: the ``capscore`` kernel for ``kind="continuous"``
-    on a card) in batches of whole chunks, at most ``SCORE_BATCH`` elements
-    each; every score is elementwise, so each chunk's slice is the score of
-    that chunk alone, and the chunk loop folds it into the carry."""
+    summary of the whole stream, on every rank (``pass1_scored``, then the
+    merge)."""
     merge_fn = _merge_fn(merge, multi=False)
-    n_chunks, eids = _shard_layout(keys_shard, chunk, group)
-    cap = k + 1
-    dev = keys_shard.device
+    _, eids = _shard_layout(keys_shard, chunk, group)
+    carry = pass1_scored(keys_shard, weights_shard, eids, kind=kind, l=l, salt=salt,
+                         cap=k + 1, chunk=chunk)
+    return merge_fn(*carry, k + 1, group)
+
+
+def pass1_scored(keys, weights, eids, *, kind, l, salt, cap, chunk):
+    """The bottom-``cap`` (key, seed) summary of a stream of whole chunks
+    (int32 keys and eids, f32 weights, on the device), before any merge.
+    The stream is scored (``element_scores``: the ``capscore`` kernel for
+    ``kind="continuous"`` on a card) in batches of whole chunks, at most
+    ``SCORE_BATCH`` elements each; every score is elementwise, so each
+    chunk's slice is the score of that chunk alone, and the chunk loop folds
+    it into the carry.  Also ``vectorized.sample_two_pass``'s pass I."""
+    n_chunks = keys.shape[0] // chunk
+    dev = keys.device
     carry = (torch.full((cap,), EMPTY, dtype=torch.int32, device=dev),
              torch.full((cap,), INF, dtype=torch.float32, device=dev))
     for lo, hi in _score_batches(n_chunks, chunk):
-        scores = VZ.element_scores(kind, keys_shard[lo:hi], eids[lo:hi],
-                                   weights_shard[lo:hi], l, salt)
+        scores = VZ.element_scores(kind, keys[lo:hi], eids[lo:hi], weights[lo:hi], l, salt)
         for a in range(0, hi - lo, chunk):
-            carry = VZ.pass1_step_scored(carry, keys_shard[lo + a:lo + a + chunk],
+            carry = VZ.pass1_step_scored(carry, keys[lo + a:lo + a + chunk],
                                          scores[a:a + chunk], cap=cap)
-    return merge_fn(*carry, cap, group)
+    return carry
 
 
 def pass2_local(keys_shard, weights_shard, sampled_sorted):

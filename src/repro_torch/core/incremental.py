@@ -1,13 +1,24 @@
-"""Incremental multi-lane sampler state (port of ``repro/core/incremental.py``).
+"""Incremental sampler state (port of ``repro/core/incremental.py``).
 
-One fixed-k continuous SH_l sketch per l of a grid, stacked on a leading
-lane axis, plus each lane's lossless bottom-(k+1) (key, seed) summary.  A
-batch advances every lane chunk by chunk (the reference's ``lax.scan`` as a
-Python loop); each chunk is sorted once (``chunk_order``), scored and reduced
-for all lanes in one fused op (``capscore_agg``), merged into the sorted
-tables, evicted on the ``evict_every`` cadence, and folded into the
-key-sorted summaries.  On a CUDA device the sort and the fused op are the
-hand-written kernels; nothing in the loop synchronises with the device.
+A single sketch (``init_state`` / ``update`` / ``finalize``,
+``IncrementalSampler``) in fixed-k or fixed-tau mode is the L = 1 case of the
+lane-stacked table: each chunk step is the one-shot samplers' own
+(``vectorized.fixed_k_step``'s stages, ``fixed_tau_step``), with element ids
+continuing from ``n_seen``, so a stream fed in pieces reproduces the
+one-shot sample bit for bit.  A fixed-k continuous step launches one
+``chunksort`` and one ``capscore_agg`` on a card.
+
+A multi-lane sampler keeps one fixed-k continuous SH_l sketch per l of a
+grid, stacked on a leading lane axis, plus each lane's lossless
+bottom-(k+1) (key, seed) summary.  A batch advances every lane chunk by
+chunk (the reference's ``lax.scan`` as a Python loop); each chunk is sorted
+once (``chunk_order``), scored and reduced for all lanes in one fused op
+(``capscore_agg``), merged into the sorted tables, evicted on the
+``evict_every`` cadence, and folded into the key-sorted summaries.  On a
+CUDA device the sort and the fused op are the hand-written kernels; nothing
+in the loop synchronises with the device.  ``update_multi(...,
+reference=True)`` is the oracle route: ``capscore_multi``, then the
+re-sorting ``_ref`` steps of ``core.vectorized``.
 
 The update functions never modify their input state, so a state stays
 usable after it was passed in (the flush path relies on that).
@@ -26,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import convert
-from ..kernels.capscore.ops import capscore_agg
+from ..kernels.capscore.ops import capscore_agg, capscore_multi
 from . import vectorized as VZ
 from .samplers import SampleResult
 from .segments import EMPTY, chunk_order, normalize_keys, searchsorted
@@ -45,20 +56,22 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class SamplerState:
-    """Streaming state of a stacked multi-l sampler.
+    """Streaming state of a sampler: one sketch (L = 1) or a stacked multi-l
+    grid.
 
     ``table`` leaves are [L, capacity]; ``l`` is the f32 [L] lane column on
     the device; ``n_seen`` (host int) is the stream position, which seeds
     element ids shared by all lanes; ``bk_keys``/``bk_seeds`` are the
-    per-lane bottom-(k+1) summaries, seed-sorted.
+    per-lane bottom-(k+1) summaries, seed-sorted (multi-l states only, else
+    ``None``).
     """
 
     table: VZ.TableState
     n_seen: int
     l: torch.Tensor
     salt: int
-    bk_keys: torch.Tensor
-    bk_seeds: torch.Tensor
+    bk_keys: torch.Tensor | None = None
+    bk_seeds: torch.Tensor | None = None
 
     @property
     def capacity(self) -> int:
@@ -67,7 +80,8 @@ class SamplerState:
 
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec:
-    """Static configuration of a multi-l sampler.
+    """Static configuration of a sampler: ``k`` set is fixed-k mode, else
+    fixed-tau (``kind`` continuous, discrete, distinct or sh).
 
     ``host_id`` namespaces element randomness across hosts that ingest
     disjoint shards (ids become ``hash(SALT_SHARD, host_id, position)``);
@@ -81,6 +95,10 @@ class SamplerSpec:
     chunk: int = 2048
     host_id: int | None = None
     evict_every: int = 1
+
+    @property
+    def mode(self) -> str:
+        return "fixed_k" if self.k is not None else "fixed_tau"
 
     def eids(self, pos: int, device) -> torch.Tensor:
         """int32 element ids of one chunk starting at stream position
@@ -101,6 +119,94 @@ class SamplerSpec:
         if self.host_id is None:
             return VZ.to_int32(base)
         return VZ.shard_eids(self.host_id, base)
+
+
+def init_state(l, *, k=None, tau=None, kind="continuous", chunk=2048,
+               capacity=8192, salt=0, evict_every=1,
+               device=None) -> tuple[SamplerState, SamplerSpec]:
+    """A fresh single-sketch state and its spec.  Fixed-k (``k`` set, only
+    ``kind="continuous"``): capacity ``k + evict_every * chunk``, so the
+    merges of an eviction period never overflow.  Fixed-tau (``tau`` set):
+    ``capacity`` slots, the overflow counted and raised at finalize."""
+    if (k is None) == (tau is None):
+        raise ValueError("exactly one of k= / tau= must be given")
+    if evict_every < 1:
+        raise ValueError(f"evict_every must be >= 1, got {evict_every}")
+    device = resolve_device(device)
+    if k is not None:
+        if kind != "continuous":
+            raise ValueError("one-pass fixed-k requires kind='continuous'")
+        table = VZ.init_table(k + evict_every * chunk, device=device)
+    else:
+        if evict_every != 1:
+            raise ValueError("evict_every applies to fixed-k samplers only")
+        table = VZ.init_table(capacity, tau, device=device)
+    state = SamplerState(table=table, n_seen=0,
+                         l=torch.tensor([l], dtype=torch.float32, device=device),
+                         salt=int(salt) & 0xFFFFFFFF)
+    return state, SamplerSpec(kind=kind, k=k, chunk=chunk, evict_every=evict_every)
+
+
+def _evict_due(spec: SamplerSpec, step: int) -> bool:
+    """Whether the chunk step that brings the round counter to ``step``
+    evicts: every step at E = 1, every E-th otherwise."""
+    return spec.evict_every == 1 or step % spec.evict_every == 0
+
+
+def _first_step(table, spec: SamplerSpec) -> int:
+    """The round counter before a batch, read from the device only where
+    the schedule needs it (E > 1); lanes advance in lockstep, so lane 0's
+    counter schedules them all."""
+    return int(table.step[0]) if spec.evict_every > 1 else 0
+
+
+def update(state: SamplerState, keys, weights, spec: SamplerSpec) -> SamplerState:
+    """Advance a single sketch over a chunk-aligned batch of int32 keys and
+    f32 weights (tensors on the state's device), chunk by chunk: fixed-k
+    through ``fixed_k_step``'s stages with eviction on the E cadence,
+    fixed-tau through ``fixed_tau_step``."""
+    chunk = spec.chunk
+    n = keys.shape[0]
+    if n % chunk:
+        raise ValueError(f"update batch ({n}) must be a multiple of chunk ({chunk})")
+    table, pos = state.table, state.n_seen
+    step = _first_step(table, spec)
+    for c in range(n // chunk):
+        ck, cw = keys[c * chunk:(c + 1) * chunk], weights[c * chunk:(c + 1) * chunk]
+        eids = spec.eids(pos, ck.device)
+        order = chunk_order(ck, eids, cw)
+        if spec.mode == "fixed_k":
+            agg = VZ.aggregate_continuous(ck, cw, eids, table.tau, state.l,
+                                          state.salt, order)
+            table = VZ.fixed_k_merge(table, agg)
+            step += 1
+            if _evict_due(spec, step):
+                table = VZ.evict_table(table, k=spec.k, l=state.l, salt=state.salt)
+        else:
+            table = VZ.fixed_tau_step(table, ck, cw, eids, state.l, state.salt,
+                                      kind=spec.kind, order=order)
+        pos += chunk
+    return SamplerState(table, pos, state.l, state.salt)
+
+
+def _final_evict(table, l, salt, spec: SamplerSpec):
+    """Project a lazily evicted table (E > 1 holds up to ``k + E*chunk``
+    keys between scheduled evictions) down to <= k for extraction: one
+    eviction round at the current step, not persisted.  Deterministic in the
+    state, and a no-op when the table holds <= k keys."""
+    return VZ.evict_table(table, k=spec.k, l=l, salt=salt)
+
+
+def finalize(state: SamplerState, spec: SamplerSpec) -> SampleResult:
+    """The single sketch's SampleResult; the state stays usable.  Raises on
+    a fixed-tau capacity overflow."""
+    st = state.table
+    overflow = int(st.overflow[0])
+    if overflow > 0:
+        raise RuntimeError(f"fixed-tau capacity overflow ({overflow}); raise capacity")
+    if spec.mode == "fixed_k" and spec.evict_every > 1:
+        st = _final_evict(st, state.l, state.salt, spec)
+    return VZ.table_result(st, l=float(state.l[0]), kind=spec.kind, tau=float(st.tau[0]))
 
 
 def init_multi_state(ls, *, k, chunk=2048, salt=0, host_id=None,
@@ -161,28 +267,55 @@ def _multi_chunk_step(table, bk_keys, bk_seeds, pos, ck, cw, l, salt,
     return table, bk_keys, bk_seeds, pos + spec.chunk
 
 
-def update_multi(state: SamplerState, keys, weights, spec: SamplerSpec) -> SamplerState:
+def update_multi(state: SamplerState, keys, weights, spec: SamplerSpec, *,
+                 reference: bool = False) -> SamplerState:
     """Advance every l-lane sketch over a chunk-aligned batch of int32 keys
-    and f32 weights (tensors on the state's device)."""
+    and f32 weights (tensors on the state's device).  ``reference=True``
+    takes the oracle route (``_update_multi_reference``): the same samples
+    and summaries at evict_every=1, more slowly."""
     chunk = spec.chunk
     n = keys.shape[0]
     if n % chunk:
         raise ValueError(f"update batch ({n}) must be a multiple of chunk ({chunk})")
+    if reference:
+        return _update_multi_reference(state, keys, weights, spec)
     cap_bk = state.bk_keys.shape[-1]
     bkk, bks = VZ.summary_to_keysorted(state.bk_keys, state.bk_seeds)
     table, pos = state.table, state.n_seen
-    E = spec.evict_every
-    # lanes advance in lockstep, so lane 0's round counter schedules
-    # eviction for all; read once per batch, and only when E > 1
-    step = int(table.step[0]) if E > 1 else 0
+    step = _first_step(table, spec)
     for c in range(n // chunk):
         step += 1
         table, bkk, bks, pos = _multi_chunk_step(
             table, bkk, bks, pos, keys[c * chunk:(c + 1) * chunk],
             weights[c * chunk:(c + 1) * chunk], state.l, state.salt, spec,
-            evict_now=(E == 1 or step % E == 0))
+            evict_now=_evict_due(spec, step))
     bk_keys, bk_seeds = VZ.summary_from_keysorted(bkk, bks, cap_bk)
     return SamplerState(table, pos, state.l, state.salt, bk_keys, bk_seeds)
+
+
+def _update_multi_reference(state: SamplerState, keys, weights,
+                            spec: SamplerSpec) -> SamplerState:
+    """The multi-l chunk step through the oracles: one ``capscore_multi``
+    launch scores every lane, then each lane re-sorts the chunk in its
+    aggregate, re-sorts its whole table in the merge and full-sorts its
+    eviction race (``fixed_k_step_scored_ref``), and the summaries advance
+    through ``pass1_step_multi``, which sorts the chunk once more.  The
+    bit-identity oracle of the fused route; evict_every=1 only."""
+    if spec.evict_every != 1:
+        raise ValueError("reference path supports evict_every=1 only")
+    chunk = spec.chunk
+    table, bk, pos = state.table, (state.bk_keys, state.bk_seeds), state.n_seen
+    cap_bk = state.bk_keys.shape[-1]
+    for c in range(keys.shape[0] // chunk):
+        ck, cw = keys[c * chunk:(c + 1) * chunk], weights[c * chunk:(c + 1) * chunk]
+        eids = spec.eids(pos, ck.device)
+        score, delta, entry, kb = capscore_multi(ck, eids, cw, state.l, table.tau,
+                                                 state.salt)
+        table = VZ.fixed_k_step_scored_ref(table, ck, cw, score, delta, entry, kb,
+                                           k=spec.k, l=state.l, salt=state.salt)
+        bk = VZ.pass1_step_multi(bk, ck, score, cap=cap_bk)
+        pos += chunk
+    return SamplerState(table, pos, state.l, state.salt, *bk)
 
 
 def finalize_multi(state: SamplerState, spec: SamplerSpec,
@@ -192,7 +325,7 @@ def finalize_multi(state: SamplerState, spec: SamplerSpec,
     evicted table down to <= k first."""
     table = state.table
     if spec.evict_every > 1:
-        table = VZ.evict_table(table, k=spec.k, l=state.l, salt=state.salt)
+        table = _final_evict(table, state.l, state.salt, spec)
     keys = table.keys.cpu().numpy()
     counts = table.counts.cpu().numpy()
     taus = table.tau.cpu().numpy()
@@ -296,6 +429,55 @@ class _RemainderBuffer:
         self.weights = np.asarray(d["rem_weights"], np.float32)[:m]
 
 
+def _upload(device, keys, weights):
+    """Host keys and weights of a chunk-aligned batch, on ``device``."""
+    return torch.from_numpy(keys).to(device), torch.from_numpy(weights).to(device)
+
+
+class IncrementalSampler:
+    """Single-sketch streaming sampler with arbitrary batch sizes (fixed-k
+    with ``k=``, fixed-tau with ``tau=``).
+
+    Buffers the sub-chunk remainder on the host, advances the device state
+    over chunk-aligned prefixes, and pads only at (non-destructive)
+    finalize, exactly as the one-shot samplers pad the end of a stream: at
+    evict_every=1 it finalizes bit for bit like ``sample_fixed_k`` /
+    ``sample_fixed_tau`` on the concatenated stream.  ``device=None`` runs
+    on the CUDA card (and raises without one).
+    """
+
+    def __init__(self, l, *, k=None, tau=None, kind="continuous", chunk=2048,
+                 capacity=8192, salt=0, host_id=None, evict_every=1, device=None):
+        self.device = resolve_device(device)
+        self.state, self.spec = init_state(
+            l, k=k, tau=tau, kind=kind, chunk=chunk, capacity=capacity, salt=salt,
+            evict_every=evict_every, device=self.device)
+        if host_id is not None:
+            self.spec = dataclasses.replace(self.spec, host_id=host_id)
+        self._rem = _RemainderBuffer(chunk)
+
+    def observe(self, keys, weights=None) -> None:
+        bk, bw = self._rem.add(normalize_keys(keys), weights)
+        if bk is not None:
+            self.state = update(self.state, *_upload(self.device, bk, bw), self.spec)
+
+    def flushed_state(self) -> SamplerState:
+        """State with the (padded) sub-chunk remainder folded in -- what
+        finalize sees; the live state is left untouched."""
+        fk, fw = self._rem.flush_padded()
+        if fk is None:
+            return self.state
+        return update(self.state, *_upload(self.device, fk, fw), self.spec)
+
+    def finalize(self) -> SampleResult:
+        """Current sample over everything observed; ingestion may continue."""
+        return finalize(self.flushed_state(), self.spec)
+
+    @property
+    def n_observed(self) -> int:
+        return self.state.n_seen + len(self._rem.keys)
+
+
 class MultiSampler:
     """l-grid streaming sampler: all lanes advance per batch.
 
@@ -316,16 +498,12 @@ class MultiSampler:
         self._rem = _RemainderBuffer(chunk)
         self._n_real = 0  # real (non-padding) elements
 
-    def _upload(self, keys, weights):
-        return (torch.from_numpy(keys).to(self.device),
-                torch.from_numpy(weights).to(self.device))
-
     def observe(self, keys, weights=None) -> None:
         keys = normalize_keys(keys)
         self._n_real += len(keys)
         bk, bw = self._rem.add(keys, weights)
         if bk is not None:
-            self.state = update_multi(self.state, *self._upload(bk, bw), self.spec)
+            self.state = update_multi(self.state, *_upload(self.device, bk, bw), self.spec)
 
     def flushed_state(self) -> SamplerState:
         """State with the (padded) sub-chunk remainder folded in — what
@@ -333,7 +511,7 @@ class MultiSampler:
         fk, fw = self._rem.flush_padded()
         if fk is None:
             return self.state
-        return update_multi(self.state, *self._upload(fk, fw), self.spec)
+        return update_multi(self.state, *_upload(self.device, fk, fw), self.spec)
 
     def absorb(self, other: "MultiSampler", *, k, merge_summaries: bool) -> None:
         """Fold another host's sampler into this one (both flushed first):

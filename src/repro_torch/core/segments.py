@@ -293,6 +293,22 @@ def chunk_order(keys, eids=None, weights=None) -> ChunkOrder:
     )
 
 
+def merge_sorted_runs(a, b):
+    """Positions of two sorted runs in their stable merged order, along the
+    last dim.
+
+    ``a`` and ``b`` must each be sorted ascending.  Returns ``(pos_a,
+    pos_b)``: a permutation of ``0..na+nb-1`` such that scattering ``a`` to
+    ``pos_a`` and ``b`` to ``pos_b`` yields exactly what a stable sort of
+    ``cat([a, b])`` gives (ties: every entry of ``a`` before ``b``'s).  Two
+    ``searchsorted`` passes instead of a sort of the union.
+    """
+    na, nb = a.shape[-1], b.shape[-1]
+    pos_a = torch.arange(na, device=a.device) + searchsorted(b, a, side="left")
+    pos_b = torch.arange(nb, device=b.device) + searchsorted(a, b, side="right")
+    return pos_a, pos_b
+
+
 def merge_sorted_runs_gather(a, b, out_len: int | None = None):
     """Gather-form merge of two sorted runs: per merged slot, which run and
     which index feeds it.

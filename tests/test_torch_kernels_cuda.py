@@ -32,7 +32,13 @@ single-chunk launch bit for bit (NaN-aware), and to the plain versions as
 above.  The bank on the card: every tenant bit-identical to a standalone
 sampler on the card, one launch of each kernel per tick, no host sync in a
 tick; against the bank on the CPU, integers exact and floats within rtol
-1e-5 (counts plus 4 ulp of the largest weight).
+1e-5 (counts plus 4 ulp of the largest weight).  The single-sketch samplers
+on the card (``capscore_agg`` at L = 1 on fixed-tau chunks, the chunk steps
+of ``IncrementalSampler``, the one-shot samplers, the reference multi-l
+route, ``per_key_randomness``): the kernels' launches counted per chunk
+step, two runs bit-identical, and against the same calls on the CPU under
+the same rules (keys and hash-only values exact; f64 ``y``/``wx`` of
+``per_key_randomness`` within 2 ulp).
 """
 import numpy as np
 import pytest
@@ -742,3 +748,174 @@ def test_bank_tick_on_the_card(evict_every):
                                        err_msg=name)
         else:
             assert np.array_equal(g, w), name
+
+
+@pytest.mark.parametrize("tau", [np.inf, 0.5, 0.01, 1e-4])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_capscore_agg_single_lane_fixed_tau(tau, weighted):
+    """L = 1, the single sketch's aggregate: a finite tau with tau*l > 1
+    (0.5 at l = 16) and < 1 (0.01, 1e-4), and the warm-up's inf."""
+    _require_cuda()
+    order, _, _ = _agg_case(2048, 1, 7 + weighted, 100)
+    if not weighted:
+        order = order._replace(ws=torch.ones_like(order.ws))
+    ls = torch.tensor([16.0], device="cuda")
+    taus = torch.tensor([tau], dtype=torch.float32, device="cuda")
+    args = (order.ks, order.eids, order.ws, order.seg, ls, taus, SALT)
+    before = cops.capscore_agg_cuda.launches
+    got, again = cops.capscore_agg(*args), cops.capscore_agg(*args)
+    torch.cuda.synchronize()
+    assert cops.capscore_agg_cuda.launches == before + 2
+    assert all(_same_bits(a, b) for a, b in zip(got, again)), "two launches differ"
+    want = cops.capscore_agg_ref(*args)
+    for i, name in ((1, "entered"), (3, "kb_min"), (4, "min_score")):
+        assert torch.equal(got[i], want[i]), name
+    for i, name in ((0, "w_total"), (2, "contrib")):
+        np.testing.assert_allclose(got[i].cpu().numpy(), want[i].cpu().numpy(),
+                                   rtol=1e-5, atol=0, err_msg=name)
+    if tau in (0.5, 0.01):  # both regimes gate some elements in and some out
+        assert bool(got[1].any()) and not bool(got[1].all())
+
+
+def _stream_case(n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.zipf(1.3, n) % 3000).astype(np.int64)
+
+
+def _agree_with_cpu(got, want, continuous):
+    assert np.array_equal(got.keys, want.keys)
+    if continuous:
+        np.testing.assert_allclose(got.counts, want.counts, rtol=1e-5,
+                                   atol=4 * float(np.spacing(np.float32(1.0))))
+        assert got.tau == pytest.approx(want.tau, rel=1e-5)
+    else:
+        assert np.array_equal(got.counts, want.counts) and got.tau == want.tau
+
+
+@pytest.mark.parametrize("mode,kind,evict_every", [
+    ("fixed_k", "continuous", 1), ("fixed_k", "continuous", 4),
+    ("fixed_tau", "continuous", 1), ("fixed_tau", "discrete", 1),
+    ("fixed_tau", "distinct", 1), ("fixed_tau", "sh", 1)])
+def test_single_sketch_step_on_the_card(mode, kind, evict_every):
+    """``IncrementalSampler`` on the card: each fixed-k continuous chunk
+    step launches one ``capscore_agg`` and one ``chunksort``; the chunk
+    loop makes no host sync (E = 1); two runs are bit-identical and equal
+    the one-shot sampler; against the same sampler on the CPU, keys exact
+    and the rest under the rules above."""
+    _require_cuda()
+    from repro_torch.core import incremental as TI
+    from repro_torch.core import vectorized as TV
+
+    chunk, n = 512, 24 * 512 + 77
+    l = {"continuous": 16.0, "discrete": 16, "distinct": 1, "sh": 1e9}[kind]
+    kw = (dict(k=256, evict_every=evict_every) if mode == "fixed_k"
+          else dict(tau=0.02, kind=kind, capacity=4096))
+    keys = _stream_case(n, 3)
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        s = TI.IncrementalSampler(l, chunk=chunk, salt=SALT, device=device, **kw)
+        s0, a0 = sops.sort_with_perm_cuda.launches, cops.capscore_agg_cuda.launches
+        if device == "cuda" and evict_every == 1:
+            kd = torch.from_numpy(keys[:16 * chunk].astype(np.int32)).cuda()
+            wd = torch.ones(16 * chunk, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                s.state = TI.update(s.state, kd, wd, s.spec)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            s.observe(keys[16 * chunk:])
+        else:
+            s.observe(keys)
+        steps = -(-n // chunk) - 1  # the remainder is flushed at finalize
+        launched = (sops.sort_with_perm_cuda.launches - s0,
+                    cops.capscore_agg_cuda.launches - a0)
+        if device == "cuda":
+            want = (steps, steps if kind == "continuous" else 0)
+            assert launched == want, (launched, want)
+        runs.append(s.finalize())
+    a, b, cpu = runs
+    assert np.array_equal(a.keys, b.keys) and np.array_equal(a.counts, b.counts)
+    assert a.tau == b.tau
+    _agree_with_cpu(a, cpu, kind == "continuous")
+    if mode == "fixed_k" and evict_every == 1:
+        one = TV.sample_fixed_k(keys, k=256, l=l, chunk=chunk, salt=SALT)
+    elif mode == "fixed_tau":
+        one = TV.sample_fixed_tau(keys, tau=0.02, l=l, kind=kind, chunk=chunk,
+                                  capacity=4096, salt=SALT)
+    else:
+        assert len(a.keys) <= 256
+        return
+    assert np.array_equal(a.keys, one.keys) and np.array_equal(a.counts, one.counts)
+
+
+@pytest.mark.parametrize("kind", ["continuous", "discrete", "distinct", "sh"])
+def test_two_pass_on_the_card(kind):
+    """``sample_two_pass`` on the card: ``capscore`` launched once per
+    ``SCORE_BATCH`` elements for continuous (none for the hash-only kinds);
+    equal to the CPU's (keys exact, tau within rtol 1e-5, exact weights
+    equal to the stream's counts)."""
+    _require_cuda()
+    from repro_torch.core import distributed as TD
+    from repro_torch.core import vectorized as TV
+
+    l = {"continuous": 16.0, "discrete": 16, "distinct": 1, "sh": 1e9}[kind]
+    keys = _stream_case(3 * TD.SCORE_BATCH // 2, 4)
+    before = cops.capscore_cuda.launches
+    got = TV.sample_two_pass(keys, k=512, l=l, kind=kind, salt=SALT)
+    assert cops.capscore_cuda.launches - before == (2 if kind == "continuous" else 0)
+    want = TV.sample_two_pass(keys, k=512, l=l, kind=kind, salt=SALT, device="cpu")
+    assert np.array_equal(got.keys, want.keys)
+    assert got.tau == pytest.approx(want.tau, rel=1e-5)
+    ukeys, counts = np.unique(keys, return_counts=True)
+    assert np.array_equal(got.counts, counts[np.searchsorted(ukeys, got.keys)])
+
+
+def test_reference_multi_route_on_the_card():
+    """``update_multi(reference=True)`` on the card: one ``capscore_multi``
+    launch per chunk step; against the fused route on the card and the
+    reference route on the CPU, keys and summaries exact, counts within
+    rtol 1e-5 plus 4 ulp, taus within rtol 1e-5."""
+    _require_cuda()
+    from repro_torch.core import incremental as TI
+
+    ls, k, chunk, n = (1.0, 16.0, 256.0, 4096.0), 256, 512, 12 * 512
+    keys = torch.from_numpy(_stream_case(n, 5).astype(np.int32))
+    w = torch.ones(n)
+    out = {}
+    for name, device, reference in (("ref", "cuda", True), ("fused", "cuda", False),
+                                    ("cpu", "cpu", True)):
+        st, spec = TI.init_multi_state(ls, k=k, chunk=chunk, salt=SALT, device=device)
+        before = cops.capscore_multi_cuda.launches
+        st = TI.update_multi(st, keys.to(device), w.to(device), spec, reference=reference)
+        if name == "ref":
+            assert cops.capscore_multi_cuda.launches - before == n // chunk
+        out[name] = (TI.finalize_multi(st, spec, ls=ls), st.bk_keys.cpu(), st.bk_seeds.cpu())
+    ref, _, _ = out["ref"]
+    for other in ("fused", "cpu"):
+        res, bkk, bks = out[other]
+        for l in ls:
+            _agree_with_cpu(ref[l], res[l], True)
+        assert torch.equal(out["ref"][1], bkk)
+        np.testing.assert_allclose(out["ref"][2].numpy(), bks.numpy(), rtol=1e-5)
+
+
+def test_per_key_randomness_on_the_card():
+    """f64 torch on the card against the numpy plain version: keys and hx
+    exact, y within 2 f64 ulp; wx exact for unit weights, and for other
+    weights within rtol 1e-12 (the card's ``index_add_`` adds a key's
+    weights with atomics in any order, numpy in element order)."""
+    _require_cuda()
+    from repro_torch.core import multiobjective as TM
+
+    keys = _stream_case(1 << 16, 6)
+    w = np.random.default_rng(6).random(len(keys)) * 3 + 0.05
+    for weights in (None, w):
+        got = TM.per_key_randomness(keys, weights, SALT)
+        want = TM.per_key_randomness_np(keys, weights, SALT)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        assert np.all(np.abs(got[2] - want[2]) <= 2 * np.spacing(np.abs(want[2])))
+        if weights is None:
+            assert np.array_equal(got[3], want[3])
+        else:
+            np.testing.assert_allclose(got[3], want[3], rtol=1e-12, atol=0)

@@ -174,3 +174,25 @@ def test_segment_primitives_batch_over_lanes():
         assert torch.equal(ks[j], ks1) and torch.equal(seg[j], seg1)
         assert torch.equal(first[j], first1)
         assert torch.equal(uk[j], TG.scatter_unique(ks1, seg1))
+
+
+@pytest.mark.parametrize("na,nb", [(1, 1), (80, 60), (64, 0), (0, 30), (300, 17)])
+def test_merge_sorted_runs_exact(na, nb):
+    """Scatter positions of the stable merge: equal to the reference's, and
+    scattering the runs by them gives the stable sort of the union (ties:
+    the first run first)."""
+    rng = np.random.default_rng(na + nb)
+    a = np.sort(rng.integers(0, 50, na)).astype(np.int32)
+    b = np.sort(rng.integers(0, 50, nb)).astype(np.int32)
+    if nb:
+        b[-1] = EMPTY
+    ref = RG.merge_sorted_runs(jnp.asarray(a), jnp.asarray(b))
+    got = TG.merge_sorted_runs(torch.from_numpy(a), torch.from_numpy(b))
+    for r, g in zip(ref, got):
+        assert np.array_equal(to_np(r), to_np(g))
+    merged = np.empty(na + nb, np.int32)
+    merged[to_np(got[0])], merged[to_np(got[1])] = a, b
+    assert np.array_equal(merged, np.sort(np.concatenate([a, b]), kind="stable"))
+    src = np.empty(na + nb, np.int64)
+    src[to_np(got[0])], src[to_np(got[1])] = np.arange(na), na + np.arange(nb)
+    assert np.array_equal(src, np.argsort(np.concatenate([a, b]), kind="stable"))
