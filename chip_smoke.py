@@ -100,6 +100,17 @@ Phases, each of which fails the run if it fails:
              ``F.embedding_bag(mode="mean", padding_idx=0)`` and the gather ->
              ``segment_sum`` composition it replaced, with its device time
              per launch against the bytes bound.
+    segment_fold — pass II's deterministic sum (the second entry of
+             ``segment_sum.cu``) bit for bit its plain version on the CPU (the
+             element-order fold, ``np.add.at``'s bits): f32 and f64, from
+             zeros and from a non-zero [4, S/4] accumulator, uniform slots,
+             mostly empty slots, one row, many rows per slot, dropped ids,
+             all rows dropped, fractional values; phase 6's reconcile batch
+             (2^20 elements x 4 lanes of 4096 keys, the hottest slot ~18% of
+             the batch), each launched twice (bit-identical); timed there
+             beside the plain version, ``index_add_`` and ``scatter_add_``
+             (atomic on the card, not deterministic), with the kernel's
+             device time and its bytes bound.
 8. recsys serving — two-tower-retrieval at full size (10M items and 50M
              users x 256, f32: 61.44 GB of tables, random weights from a
              seeded generator on the card) at serve_p99 (B=512), serve_bulk
@@ -159,8 +170,33 @@ Phases, each of which fails the run if it fails:
              ulp; one ``capscore_multi`` launch per chunk step.  10e:
              ``multiobjective_sample(k=4096, ls=(1, 16, 256, 4096))``: the
              card's ``per_key_randomness`` against numpy (keys and hx
-             exact, y and wx within 2 f64 ulp), |S_L| against k ln n, the
-             relative error of ``estimate_multi`` for cap_T.
+             exact, y within 2 f64 ulp, wx exact, also for fractional
+             weights), |S_L| against k ln n, the relative error of
+             ``estimate_multi`` for cap_T.  Pass II's sums (phase 6's
+             programs and reconcile, 10c's counts, 10e's wx) go through the
+             fold kernel: its launches are counted on each and must not be 0.
+11. shard tier — 11a: ``ShardTier(TierConfig(n_shards=4, retain_wal=True))``
+             over ``StatsConfig()`` on a ``VirtualClock``: 2^22 elements of
+             phase 3's stream with fractional weights from ``--seed``, in
+             batches of 2^18, a health round after each, under
+             ``FaultSchedule.generate(seed, n_shards=4, n_events=8)`` of
+             crash, stall and lost_reply, and one explicit ``kill_shard``
+             after batch 12, beside a never-faulted oracle tier: the answer
+             that finds the dead shard stamped with the live shards' routed
+             coverage; after recovery every shard's state bit-identical to
+             the oracle's; exact mode built twice bit-identical (equal to
+             the oracle's), its pass-II accumulators equal to ``np.add.at``
+             over the WALs on the host, one fold launch per WAL batch; exact
+             estimates within 5 stderr.  11b: ``ProcShardTier`` with 4
+             worker processes on the card over the first 2^21 elements, a
+             real SIGKILL on shard 1's third ingest (restarted, recovered):
+             shard states and approx answers bit-identical to 11a's oracle
+             on that prefix, each worker on the card holding a CUDA context
+             (``nvidia-smi --query-compute-apps`` lists it: by pid where the
+             sandbox shows this namespace's pids, else by the count of
+             entries, 4 more than before the workers); elements/s, recovery
+             and query seconds, worker start-up seconds and device memory
+             per worker (the card's used memory over the coordinator's).
 
 The results and the profile are also written as JSON to ``chiprun_out/``
 in the checkout (git-ignored).
@@ -169,7 +205,8 @@ It imports nothing of JAX or of the reference package ``repro``.  It exits
 non-zero without a CUDA device, and when run without the rest of the repo.
 The card's name and power limit (``nvidia-smi``) come two lines before the
 last, the ``kernels`` JSON on the line before the last (each kernel's
-launches on its path, and ``launches_phase10`` on 10a-10d's), and the last line is
+launches on its path, ``launches_phase10`` on 10a-10e's, and ``segment_fold``'s
+``launches_by_phase``), and the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1274,6 +1311,116 @@ def check_embedding_bag(device, rng) -> tuple[dict, dict]:
             "all_rows_bound_ms": bulk["all_rows_bound_ms"]}, readings
 
 
+# pass II's deterministic sum: phase 6's reconcile batch (2^20 elements of
+# phase 3's stream against 4 lanes of 4096 sampled keys, here the 4096 most
+# frequent keys in every lane, so the hottest slot holds ~18% of the batch)
+FOLD_BATCH = 1 << 20
+FOLD_LANES = (4, 4096)
+
+
+def _fold_case(ops, acc, slot, vals, what: str) -> None:
+    """The fold kernel twice (bit-identical) against its plain version on
+    CPU copies (the element-order fold), bit for bit."""
+    import torch
+
+    got = ops.segment_fold_cuda(acc.clone(), slot, vals)
+    again = ops.segment_fold_cuda(acc.clone(), slot, vals)
+    want = ops.segment_fold_ref(acc.cpu(), slot.cpu(), vals.cpu())
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"segment_fold {what}: two launches differ")
+    if not torch.equal(got.cpu(), want):
+        d = (got.cpu() - want).abs().max()
+        raise AssertionError(f"segment_fold {what}: differs from the element-order fold "
+                             f"(max abs diff {float(d)!r})")
+
+
+def check_segment_fold(device, rng) -> tuple[dict, dict]:
+    """Phase 2d, pass II's fold (``ops.segment_fold_``, the second entry of
+    ``segment_sum.cu``): bit for bit its plain version on the CPU, in f32
+    and f64, on empty slots, one row, many rows, a hot slot, dropped ids,
+    fractional weights, from a non-zero accumulator; then timed at phase
+    6's reconcile batch beside the plain version, ``index_add_`` and
+    ``scatter_add_`` (both atomic on the card: not deterministic), with
+    its device time and bytes bound.  Returns its ``kernels`` entry (its
+    launches are filled in from the paths) and the readings."""
+    import numpy as np
+    import torch
+    from repro_torch.data.streams import zipf_keys
+    from repro_torch.kernels.embedding_bag import ops
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    n_cases = 0
+    for dtype in (np.float32, np.float64):
+        for what, S, slot in (
+                ("uniform", 4096, rng.integers(0, 4096, 100_000)),
+                ("mostly empty slots", 1 << 16, rng.integers(0, 1 << 16, 3000)),
+                ("one row", 64, np.array([17])),
+                ("many rows per slot", 16, rng.integers(0, 16, 100_000)),
+                ("dropped ids", 4096, rng.integers(-100, 4196, 100_000)),
+                ("all rows dropped", 64, np.full(1000, 64))):
+            vals = (rng.random(len(slot)) * 3 + 0.05).astype(dtype)
+            for start in ("zeros", "non-zero [4, S/4]"):
+                acc = (np.zeros(S, dtype) if start == "zeros"
+                       else rng.random(S).astype(dtype).reshape(4, -1))
+                _fold_case(ops, put(acc), put(slot.astype(np.int64)), put(vals),
+                           f"{np.dtype(dtype).name} {what}, from {start}")
+                n_cases += 1
+    # the reconcile batch: f64, fractional weights, the hot slots
+    L, kk = FOLD_LANES
+    keys = zipf_keys(rng, FOLD_BATCH, 1.2, 1 << 22)
+    ukeys, counts = np.unique(keys, return_counts=True)
+    sampled = np.sort(ukeys[np.argsort(-counts, kind="stable")[:kk]])
+    loc = np.clip(np.searchsorted(sampled, keys), 0, kk - 1)
+    match = sampled[loc] == keys
+    lane_slot = np.arange(L)[:, None] * kk + loc[None, :]
+    slot = put(np.where(match[None, :], lane_slot, L * kk).reshape(-1).astype(np.int64))
+    w = (rng.random(FOLD_BATCH) * 3 + 0.05)
+    vals = put(np.broadcast_to(w, (L, FOLD_BATCH)).reshape(-1).astype(np.float64))
+    acc = torch.zeros((L, kk), dtype=torch.float64, device=device)
+    hot_share = float(counts.max()) / FOLD_BATCH
+    t0 = time.perf_counter()
+    _fold_case(ops, acc, slot, vals, f"reconcile batch ({L} x {FOLD_BATCH} rows)")
+    n_cases += 1
+    check_s = time.perf_counter() - t0
+    log(f"segment_fold: {n_cases} cases bit for bit the element-order fold (the plain "
+        f"version on the CPU), two launches bit-identical each; the reconcile batch "
+        f"(hottest slot {hot_share:.3f} of the batch) checked in {check_s:.2f} s")
+
+    S = acc.numel()
+    ms = cuda_ms(lambda: ops.segment_fold_cuda(acc, slot, vals), 20, 3)
+    plain = cuda_ms(lambda: ops.segment_fold_ref(acc, slot, vals), 20, 3)
+    dump = torch.zeros(S + 1, dtype=torch.float64, device=device)  # slot S: the dropped rows
+    library = cuda_ms(lambda: dump.index_add_(0, slot, vals), 20, 3)
+    scatter = cuda_ms(lambda: dump.scatter_add_(0, slot, vals), 20, 3)
+    sort_ms = cuda_ms(lambda: ops.sort_grouping(slot, S), 20, 3)
+    dev_us = _kernel_device_us(lambda: ops.segment_fold_cuda(acc, slot, vals), 5,
+                               "segment_fold_kernel")
+    n = slot.numel()
+    # bytes: the slot ids and the values read once, the accumulator read and
+    # written once; one add per row that lands in a slot
+    b, by = bound_ms(8 * n + 8 * n + 2 * 8 * S, int(match.sum()) * L)
+    readings = {"rows": n, "slots": S, "hot_slot_share": hot_share, "ms": ms,
+                "plain_ms": plain, "index_add_ms": library, "scatter_add_ms": scatter,
+                "sort_grouping_ms": sort_ms, "device_us_per_launch": dev_us,
+                "bound_ms": b, "bound_by": by, "cases": n_cases}
+    log(f"segment_fold at the reconcile batch ({n} rows into {S} slots, f64): "
+        f"{ms:.4f} ms per call ({dev_us:.1f} us the kernel alone, {sort_ms:.4f} ms the "
+        f"stable sort and ranges), plain {plain:.4f} ms, index_add_ {library:.4f} ms, "
+        f"scatter_add_ {scatter:.4f} ms (both atomic: not deterministic), bound "
+        f"{b:.6f} ms ({by})")
+    del keys, slot, vals, acc, dump
+    torch.cuda.empty_cache()
+    return {"name": "segment_fold", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+            "replaces": "none: pass II's XLA .at[].add, src/repro/core/incremental.py:670",
+            "launches": None, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": library,
+            "device_us": dev_us}, readings
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path
 # ---------------------------------------------------------------------------
@@ -1516,9 +1663,11 @@ def _synced(fn, barrier=True):
 def _counters():
     from repro_torch.kernels.capscore import ops as cops
     from repro_torch.kernels.chunksort import ops as sops
+    from repro_torch.kernels.embedding_bag import ops as eops
 
     return {"capscore_multi": cops.capscore_multi_cuda, "capscore": cops.capscore_cuda,
-            "capscore_agg": cops.capscore_agg_cuda, "chunksort": sops.sort_with_perm_cuda}
+            "capscore_agg": cops.capscore_agg_cuda, "chunksort": sops.sort_with_perm_cuda,
+            "segment_fold": eops.segment_fold_cuda}
 
 
 def _counted(fn, barrier=True):
@@ -1650,6 +1799,11 @@ def _merge_and_check(gathered, prog, keys, cfg, batch) -> dict:
             raise AssertionError(f"rank {o['rank']}: capscore launched "
                                  f"{o['launches_single']['capscore']} times for a shard of "
                                  f"{m} elements, not {score_launches}")
+        # pass II sums through the fold kernel, once per program
+        for name in ("tree", "allgather", "single"):
+            if o[f"launches_{name}"]["segment_fold"] != 1:
+                raise AssertionError(f"rank {o['rank']} {name}: segment_fold launched "
+                                     f"{o[f'launches_{name}']['segment_fold']} times, not once")
     for a, b in zip(prog["tree"], prog["allgather"]):
         if not np.array_equal(a, b):
             raise AssertionError("tree and all-gather merges differ")
@@ -1674,7 +1828,11 @@ def _merge_and_check(gathered, prog, keys, cfg, batch) -> dict:
             for lo in range(r * m, (r + 1) * m, batch):
                 svc.reconcile(keys[lo:lo + batch])
 
-    _, t_recon = _synced(reconcile, barrier=False)
+    _, t_recon, recon_launches = _counted(reconcile, barrier=False)
+    recon_calls = P * -(-m // batch)
+    if recon_launches["segment_fold"] != recon_calls:
+        raise AssertionError(f"phase 6: reconcile launched segment_fold "
+                             f"{recon_launches['segment_fold']} times for {recon_calls} batches")
     bk_keys, bk_seeds = svc._sampler.bottomk_summaries()  # the merged summaries
     pk, ps, pw = prog["tree"]
     ties = 0
@@ -1728,7 +1886,9 @@ def _merge_and_check(gathered, prog, keys, cfg, batch) -> dict:
         "summary_cut_ties": ties, "worst_abs_z": worst,
         "launches": {"capscore_multi": sum(o["launches_tree"]["capscore_multi"]
                                            for o in ranks),
-                     "capscore": sum(o["launches_single"]["capscore"] for o in ranks)},
+                     "capscore": sum(o["launches_single"]["capscore"] for o in ranks),
+                     "segment_fold": sum(o["launches_tree"]["segment_fold"] for o in ranks)
+                     + recon_launches["segment_fold"]},
         "launches_per_rank": [{"tree": o["launches_tree"], "allgather": o["launches_allgather"],
                                "single": o["launches_single"]} for o in ranks],
         "max_memory_allocated_program": [o["max_memory_allocated_program"] for o in ranks],
@@ -2890,6 +3050,9 @@ def _sampler_two_pass(keys, ukeys, counts) -> dict:
             stream, k=SAMPLER_K, l=l, kind=kind, chunk=SAMPLER_CHUNK, salt=SALT),
             barrier=False)
         want_calls = -(-n // SCORE_BATCH) if kind == "continuous" else 0
+        if launches["segment_fold"] != 1:
+            raise AssertionError(f"10c {kind}: pass II launched segment_fold "
+                                 f"{launches['segment_fold']} times, not once")
         if launches["capscore"] != want_calls:
             raise AssertionError(f"10c {kind}: capscore launched {launches['capscore']} times, "
                                  f"not {want_calls}")
@@ -3078,18 +3241,31 @@ def _sampler_multiobjective(keys, ukeys, counts) -> dict:
     from repro_torch.core import multiobjective as TM
 
     n = len(keys)
-    (uk, hx, y, wx), t_dev = _synced(lambda: TM.per_key_randomness(keys, None, SALT),
-                                     barrier=False)
+    (uk, hx, y, wx), t_dev, launches = _counted(
+        lambda: TM.per_key_randomness(keys, None, SALT), barrier=False)
     t0 = time.perf_counter()
     p_uk, p_hx, p_y, p_wx = TM.per_key_randomness_np(keys, None, SALT)
     t_np = time.perf_counter() - t0
     if not (np.array_equal(uk, p_uk) and np.array_equal(hx, p_hx)):
         raise AssertionError("10e: per_key_randomness keys or hx differ from the plain version")
     ulps = [float(np.max(np.abs(a - b) / np.spacing(np.abs(b)))) for a, b in ((y, p_y), (wx, p_wx))]
-    if max(ulps) > 2:
-        raise AssertionError(f"10e: per_key_randomness y / wx differ by {ulps} f64 ulp")
-    (union, w_u, taus, per_l), t_mo = _synced(
+    if ulps[0] > 2 or not np.array_equal(wx, p_wx):
+        raise AssertionError(f"10e: per_key_randomness y / wx differ by {ulps} f64 ulp "
+                             "(y may differ by 2, wx must be exact)")
+    # fractional weights: wx is exact in no order but the element order
+    frac = np.random.default_rng(SALT).random(n) * 3 + 0.05
+    (_, _, _, wx_f), _, la = _counted(lambda: TM.per_key_randomness(keys, frac, SALT),
+                                      barrier=False)
+    if not np.array_equal(wx_f, TM.per_key_randomness_np(keys, frac, SALT)[3]):
+        raise AssertionError("10e: per_key_randomness wx of fractional weights differs from "
+                             "np.add.at")
+    launches = {k: launches[k] + la[k] for k in launches}
+    (union, w_u, taus, per_l), t_mo, la = _counted(
         lambda: TM.multiobjective_sample(keys, None, SAMPLER_K, MO_LS, salt=SALT), barrier=False)
+    launches = {k: launches[k] + la[k] for k in launches}
+    if launches["segment_fold"] != 3:
+        raise AssertionError(f"10e: segment_fold launched {launches['segment_fold']} times "
+                             "for 3 per_key_randomness calls")
     all_l = TM.union_sample_all_l(uk, hx, y, SAMPLER_K)
     bound = SAMPLER_K * math.log(n)
     rel = {}
@@ -3102,10 +3278,11 @@ def _sampler_multiobjective(keys, ukeys, counts) -> dict:
     out = {"elements": n, "distinct_keys": len(uk), "per_key_randomness_s": t_dev,
            "plain_s": t_np, "y_wx_max_ulp": ulps, "multiobjective_sample_s": t_mo,
            "grid_union_size": len(union), "all_l_union_size": len(all_l),
-           "k_ln_n": bound, "rel_err_cap": rel}
+           "k_ln_n": bound, "rel_err_cap": rel, "launches": launches}
     log(f"phase 10e (multiobjective_sample, k={SAMPLER_K}, ls={MO_LS}, {n} elements, "
         f"{len(uk)} keys): per_key_randomness on the card {t_dev:.3f} s (numpy {t_np:.2f} s), "
-        f"keys and hx exact, y / wx within {ulps} ulp; whole sample {t_mo:.2f} s; "
+        f"keys and hx exact, y within {ulps[0]} ulp, wx exact (also for fractional "
+        f"weights); whole sample {t_mo:.2f} s; launches {launches}; "
         f"|S_grid| {len(union)}, |S_L| over all l {len(all_l)} against k ln n = {bound:.0f} "
         f"(Lemma 6.1); estimate_multi relative error of cap_T {rel}")
     return out
@@ -3131,11 +3308,330 @@ def run_samplers(seed: int) -> dict:
     paths = {"10a": out["10a"]["launches"],
              "10b": {k: sum(r["launches"][k] for r in out["10b"].values()) for k in _counters()},
              "10c": {k: sum(r["launches"][k] for r in out["10c"].values()) for k in _counters()},
-             "10d": out["10d"]["reference_launches"]}
+             "10d": out["10d"]["reference_launches"], "10e": out["10e"]["launches"]}
     out["launches"] = {k: {p: paths[p][k] for p in paths} for k in _counters()}
     out["seconds"] = seconds
     log("phase 10 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; launches on its paths {out['launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the fault-tolerant shard tier (in-process, then worker processes)
+# ---------------------------------------------------------------------------
+
+TIER_N = 1 << 22            # 11a: elements through the in-process tier
+TIER_BATCH = 1 << 18        # ingest batches (each split over the shards)
+TIER_PROC_N = 1 << 21       # 11b: the process tier's prefix of the same stream
+TIER_SHARDS = 4
+TIER_FAULT_KINDS = ("crash", "stall", "lost_reply")
+TIER_KILL = (12, 2)         # 11a: after this many batches, kill this shard
+TIER_PROC_CRASH = "shard1.ingest"  # 11b: a real SIGKILL on its 3rd call
+TIER_HEALTH_ROUNDS = 20
+
+
+def _tier_stream(seed: int):
+    """Phase 3's Zipf(1.2) keys on 2^22 ids (the first TIER_N of them) and
+    fractional f32 weights, both from ``seed``."""
+    import numpy as np
+    from repro_torch.data.streams import zipf_keys
+
+    keys = zipf_keys(np.random.default_rng(seed), TIER_N, 1.2, 1 << 22)
+    weights = (np.random.default_rng(seed + 1).random(TIER_N) * 3 + 0.05).astype(np.float32)
+    return keys, weights
+
+
+def _tier_states(tier, view: bool = False) -> list:
+    """Every shard's state dict as host arrays (through the RPC in process
+    mode)."""
+    out = []
+    for w in tier.workers:
+        svc = w.service_view() if view else w.service
+        out.append({k: v.cpu().numpy() for k, v in svc.state_dict().items()})
+    return out
+
+
+def _same_states(got: list, want: list, what: str) -> None:
+    import numpy as np
+
+    for s, (a, b) in enumerate(zip(got, want)):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{what}: shard {s}'s state leaves differ")
+        for k in b:
+            if not (a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])):
+                raise AssertionError(f"{what}: shard {s}'s leaf {k} differs")
+
+
+def _timed_recoveries(tier, seconds: list) -> None:
+    """Wrap each worker's ``recover`` to record its wall seconds (synced)."""
+    import torch
+
+    for w in tier.workers:
+        def timed(orig=w.recover):
+            t0 = time.perf_counter()
+            try:
+                return orig()
+            finally:
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+        w.recover = timed
+
+
+def _pass2_by_numpy(scratch, wals) -> "np.ndarray":
+    """The exact mode's pass-II accumulators, recomputed on the host:
+    ``np.add.at`` over every shard's WAL in the order reconcile reads it."""
+    import numpy as np
+
+    want = np.zeros(tuple(scratch._recon_acc.shape))
+    for wal in wals:
+        for _, kk, ww in wal.entries():
+            for j, lane in enumerate(scratch._lanes):
+                m = np.isin(kk, lane.keys)
+                np.add.at(want[j], np.searchsorted(lane.keys, kk[m]), ww[m].astype(np.float64))
+    return want
+
+
+def _exact_answer(tier, queries):
+    """An exact answer; a scheduled fault on a query site may take a shard
+    down while the pass-I summaries are collected, and then health rounds
+    bring it back and the query runs again (the reference's chaos test)."""
+    from repro_torch.stats.shardtier import ExactUnavailable
+
+    for _ in range(TIER_HEALTH_ROUNDS):
+        try:
+            return tier.query_batch(queries, mode="exact")
+        except ExactUnavailable:
+            for _ in range(TIER_HEALTH_ROUNDS):
+                if all(v == "up" for v in tier.check_health().values()):
+                    break
+    raise AssertionError(f"11a: no exact answer; membership {tier.membership()}")
+
+
+def _smi_apps() -> list:
+    """``nvidia-smi --query-compute-apps``: one (pid, MiB) per process that
+    holds a CUDA context on the card.  In a sandbox with its own pid
+    namespace the pids are the host's view (on the H100 machine every
+    process reads as pid 1), so the entries are counted too."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout
+    return [tuple(float(x) for x in line.split(",")) for line in out.strip().splitlines()
+            if line.strip()]
+
+
+def _run_tier_in_process(seed: int, keys, weights, root: Path) -> dict:
+    """11a: ``ShardTier`` under a seeded fault schedule and one explicit
+    kill, beside a never-faulted oracle tier over the same stream."""
+    import numpy as np
+    import torch
+    from repro_torch.core import freqfns, segments
+    from repro_torch.launch.faults import FaultInjector, FaultSchedule, VirtualClock
+    from repro_torch.stats.service import StatsConfig
+    from repro_torch.stats.shardtier import ShardTier, TierConfig
+
+    cfg, tcfg = StatsConfig(), TierConfig(n_shards=TIER_SHARDS, retain_wal=True)
+    schedule = FaultSchedule.generate(seed, n_shards=TIER_SHARDS, n_events=8,
+                                      kinds=TIER_FAULT_KINDS)
+    faults = FaultInjector(schedule, VirtualClock())
+    tier = ShardTier(cfg, tcfg, root / "tier", faults=faults)
+    oracle = ShardTier(cfg, tcfg, root / "oracle")
+    recover_s = []
+    _timed_recoveries(tier, recover_s)
+    queries = _queries([segments.AllKeys(), segments.HashBucket(8, 3, salt=7)])
+    n_batches = TIER_N // TIER_BATCH
+    t_tier = 0.0
+    mid = degraded = None
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    for i in range(n_batches):
+        sl = slice(i * TIER_BATCH, (i + 1) * TIER_BATCH)
+        kb, wb = keys[sl], weights[sl]
+        _, sec = _synced(lambda: (tier.ingest(kb, wb), tier.check_health()), barrier=False)
+        t_tier += sec
+        if i == 0:
+            ingest_launches = {k: c.launches for k, c in counters.items()}
+        oracle.ingest(kb, wb)
+        if (i + 1) * TIER_BATCH == TIER_PROC_N:  # 11b's prefix
+            mid = {"states": _tier_states(oracle),
+                   "approx": oracle.query_batch(queries, mode="approx").estimates.copy()}
+        if i + 1 == TIER_KILL[0]:
+            for _ in range(TIER_HEALTH_ROUNDS):
+                if all(v == "up" for v in tier.check_health().values()):
+                    break
+            s = TIER_KILL[1]
+            live = [j for j in tier.live_shards() if j != s]
+            tier.kill_shard(s)
+            # the query that finds the dead shard answers from the others,
+            # stamped; the shard is recovered through its WAL meanwhile
+            routed = list(tier._routed)
+            degraded = tier.query_batch(queries, mode="approx")
+            want_cov = sum(routed[j] for j in live) / sum(routed)
+            if not (degraded.degraded and degraded.mode == "approx"
+                    and degraded.coverage == want_cov
+                    and degraded.staleness_elements == sum(routed) - sum(routed[j]
+                                                                         for j in live)):
+                raise AssertionError(f"11a: the answer without shard {s} is stamped coverage "
+                                     f"{degraded.coverage} stale {degraded.staleness_elements} "
+                                     f"degraded {degraded.degraded}; want {want_cov}")
+    for _ in range(TIER_HEALTH_ROUNDS):
+        if all(v == "up" for v in tier.check_health().values()):
+            break
+    if tier.live_shards() != list(range(TIER_SHARDS)):
+        raise AssertionError(f"11a: shards still down after the schedule: {tier.membership()}")
+    _same_states(_tier_states(tier), _tier_states(oracle), "11a recovered vs oracle")
+
+    # exact mode twice (each a full exact merge + pass II over every WAL)
+    for c in counters.values():
+        c.launches = 0
+    first, t_exact = _synced(lambda: _exact_answer(tier, queries), barrier=False)
+    acc_first = tier._merged_exact()._recon_acc.clone()
+    tier._bump()  # drop the cached merge: the second answer is built anew
+    second, t_exact2 = _synced(lambda: _exact_answer(tier, queries), barrier=False)
+    exact_launches = {k: c.launches for k, c in counters.items()}
+    scratch = tier._merged_exact()
+    if not (np.array_equal(first.estimates, second.estimates)
+            and torch.equal(acc_first, scratch._recon_acc)):
+        raise AssertionError("11a: two exact answers differ")
+    want_acc = _pass2_by_numpy(scratch, [w.wal for w in tier.workers])
+    if not np.array_equal(scratch._recon_acc.cpu().numpy(), want_acc):
+        raise AssertionError("11a: exact mode's pass-II accumulators differ from np.add.at "
+                             "over the WALs")
+    if not np.array_equal(first.estimates, oracle.query_batch(queries, mode="exact").estimates):
+        raise AssertionError("11a: exact answers differ from the oracle tier's")
+    wal_batches = sum(len(w.wal.seqs()) for w in tier.workers)
+    if exact_launches["segment_fold"] != 2 * wal_batches:
+        raise AssertionError(f"11a: exact mode launched segment_fold "
+                             f"{exact_launches['segment_fold']} times for 2 x {wal_batches} "
+                             "WAL batches")
+    ukeys, inv = np.unique(keys, return_inverse=True)
+    wsum = np.zeros(len(ukeys))
+    np.add.at(wsum, inv, weights.astype(np.float64))
+    worst = 0.0
+    for i, q in enumerate(queries):
+        truth = freqfns.exact_statistic(q.fn, wsum, q.segment, keys=ukeys)
+        est, se = float(first.estimates[i]), float(first.stderr[i])
+        z = abs(est - truth) / se if se > 0 else (0.0 if est == truth else np.inf)
+        worst = max(worst, z)
+        if not (np.isfinite(est) and z <= 5.0):
+            raise AssertionError(f"11a exact {q.fn.name} {q.segment.describe()}: estimate "
+                                 f"{est} is {z:.2f} stderr from {truth}")
+    # approx answers, built and then cached
+    _, t_approx = _synced(lambda: tier.query_batch(queries, mode="approx"), barrier=False)
+    _, t_approx_hit = _synced(lambda: tier.query_batch(queries, mode="approx"), barrier=False)
+    st = tier.status()
+    out = {"elements": TIER_N, "batches": n_batches, "shards": TIER_SHARDS,
+           "elements_per_s": TIER_N / t_tier, "ingest_s": t_tier,
+           "schedule": [[e.site, e.call_no, e.kind, e.param] for e in schedule.events],
+           "fired": [[e.site, e.call_no, e.kind] for e in faults.fired],
+           "recoveries": len(recover_s), "recover_s": recover_s,
+           "degraded_coverage": degraded.coverage, "degraded_stale": degraded.staleness_elements,
+           "exact_s": t_exact, "exact_again_s": t_exact2, "approx_ms": t_approx * 1e3,
+           "approx_cached_ms": t_approx_hit * 1e3, "worst_exact_abs_z": worst,
+           "launches_ingest_first_batch": ingest_launches, "launches_exact": exact_launches,
+           "wal_batches": wal_batches, "events": len(tier.events),
+           "loads": [st["shards"][s]["load"] for s in range(TIER_SHARDS)]}
+    log(f"phase 11a (ShardTier, {TIER_SHARDS} shards, StatsConfig(), {TIER_N} elements in "
+        f"batches of {TIER_BATCH}, fractional weights): {out['elements_per_s']:.4g} elements/s "
+        f"through the tier under {len(faults.fired)} of {len(schedule.events)} scheduled faults "
+        f"{out['fired']}; {len(recover_s)} recoveries, {sum(recover_s):.2f} s in all (longest "
+        f"{max(recover_s, default=0.0):.3f} s); shard {TIER_KILL[1]} killed after batch "
+        f"{TIER_KILL[0]}: answered with coverage {degraded.coverage:.6f}, "
+        f"{degraded.staleness_elements} elements stale; every shard's state bit-identical to "
+        f"the oracle tier's; exact mode {t_exact:.3f} s, again {t_exact2:.3f} s, bit-identical, "
+        f"pass II equal to np.add.at over {wal_batches} WAL batches, worst |z| {worst:.2f}; "
+        f"approx {t_approx * 1e3:.2f} ms (cached {t_approx_hit * 1e3:.3f} ms); launches of the "
+        f"two exact answers {exact_launches}")
+    return out, mid
+
+
+def _run_tier_processes(seed: int, keys, weights, root: Path, mid: dict) -> dict:
+    """11b: ``ProcShardTier``, one worker process per shard on the card,
+    one of them SIGKILLed mid-ingest; its shards and approx answers held
+    bit for bit against 11a's oracle tier on the same prefix."""
+    import numpy as np
+    import torch
+    from repro_torch.core import segments
+    from repro_torch.launch.faults import FaultEvent, FaultInjector, FaultSchedule, WallClock
+    from repro_torch.stats.procshard import ProcShardTier, SupervisorConfig
+    from repro_torch.stats.service import StatsConfig
+    from repro_torch.stats.shardtier import TierConfig
+
+    queries = _queries([segments.AllKeys(), segments.HashBucket(8, 3, salt=7)])
+    faults = FaultInjector(FaultSchedule(events=(FaultEvent(TIER_PROC_CRASH, 3, "crash"),)),
+                           clock=WallClock())
+    free0, _ = torch.cuda.mem_get_info()
+    apps0 = _smi_apps()
+    t0 = time.perf_counter()
+    batch_s = []
+    with ProcShardTier(StatsConfig(), TierConfig(n_shards=TIER_SHARDS, retain_wal=True),
+                       root / "proc", faults=faults,
+                       supervisor=SupervisorConfig(restart_backoff_s=0.05)) as tier:
+        for i in range(TIER_PROC_N // TIER_BATCH):
+            sl = slice(i * TIER_BATCH, (i + 1) * TIER_BATCH)
+            t1 = time.perf_counter()
+            tier.ingest(keys[sl], weights[sl])
+            batch_s.append(time.perf_counter() - t1)
+        ingest_s = time.perf_counter() - t0
+        tier.check_health()
+        st = tier.status()
+        pids = [st["shards"][s]["pid"] for s in range(TIER_SHARDS)]
+        apps = _smi_apps()
+        free1, _ = torch.cuda.mem_get_info()
+        if [e.kind for e in faults.fired] != ["crash"]:
+            raise AssertionError(f"11b: the SIGKILL did not fire: {faults.fired}")
+        restarts = [st["shards"][s]["restarts"] for s in range(TIER_SHARDS)]
+        if tier.live_shards() != list(range(TIER_SHARDS)) or sum(restarts) != 1:
+            raise AssertionError(f"11b: membership {tier.membership()}, restarts {restarts}")
+        # every worker holds a CUDA context: by pid where nvidia-smi shows
+        # this namespace's pids, else by the count of its compute apps
+        seen = {int(pid) for pid, _ in apps}
+        by_pid = all(p in seen for p in pids)
+        devices = [st["shards"][s]["device"] for s in range(TIER_SHARDS)]
+        if not (by_pid or len(apps) >= len(apps0) + TIER_SHARDS) or devices != [
+                "cuda"] * TIER_SHARDS:
+            raise AssertionError(f"11b: workers {pids} on {devices}: nvidia-smi lists "
+                                 f"{apps} (before the workers {apps0})")
+        _same_states(_tier_states(tier, view=True), mid["states"], "11b vs 11a's oracle")
+        approx = tier.query_batch(queries, mode="approx").estimates
+        if not np.array_equal(approx, mid["approx"]):
+            raise AssertionError("11b: approx answers differ from 11a's oracle tier's")
+        startup = [st["shards"][s]["startup_s"] for s in range(TIER_SHARDS)]
+    per_worker = (free0 - free1) / TIER_SHARDS
+    out = {"elements": TIER_PROC_N, "workers": TIER_SHARDS, "pids": pids,
+           "ingest_s": ingest_s, "elements_per_s": TIER_PROC_N / ingest_s,
+           "batch_s": batch_s, "startup_s": startup, "worker_devices": devices,
+           "smi_apps_before": apps0, "smi_apps": apps, "contexts_by_pid": by_pid,
+           "device_bytes_per_worker": per_worker, "restarts": restarts}
+    log(f"phase 11b (ProcShardTier, {TIER_SHARDS} worker processes on the card, {TIER_PROC_N} "
+        f"elements): {out['elements_per_s']:.4g} elements/s ({ingest_s:.2f} s with start-up "
+        f"and one SIGKILL on {TIER_PROC_CRASH} call 3, batches {['%.2f' % b for b in batch_s]} "
+        f"s); worker start-up {['%.2f' % x for x in startup]} s (the killed one's respawn "
+        f"counted); {len(apps)} compute apps in nvidia-smi against {len(apps0)} before the "
+        f"workers (by pid: {by_pid}); device memory per worker {per_worker / 2**20:.1f} MiB "
+        f"(the card's used memory over the coordinator's, / {TIER_SHARDS}); shards and "
+        f"approx answers bit-identical to 11a's oracle tier on the same prefix")
+    return out
+
+
+def run_shard_tier(seed: int) -> dict:
+    """Phase 11: 11a, the in-process tier under faults; 11b, the process
+    tier (the shard directories live under ``chiprun_out/phase11``,
+    removed after)."""
+    root = OUT_DIR / "phase11"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        keys, weights = _tier_stream(seed)
+        t0 = time.perf_counter()
+        tier, mid = _run_tier_in_process(seed, keys, weights, root)
+        t1 = time.perf_counter()
+        procs = _run_tier_processes(seed, keys, weights, root, mid)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"11a": tier, "11b": procs, "seconds": {"11a": t1 - t0, "11b": t2 - t1}}
+    log(f"phase 11 seconds: 11a {t1 - t0:.1f}, 11b {t2 - t1:.1f}")
     return out
 
 
@@ -3193,6 +3689,8 @@ def main(argv=None) -> int:
     kernels.append(segsum)
     bag, bag_serving = timed("2d embedding_bag", check_embedding_bag, device, rng)
     kernels.append(bag)
+    fold, fold_readings = timed("2d segment_fold", check_segment_fold, device, rng)
+    kernels.append(fold)
 
     main_path = timed("3", run_main_path, args.seed, 1 << 24, 1 << 20)
     timed("4", run_state_round_trip, args.seed, 1 << 22)
@@ -3203,6 +3701,7 @@ def main(argv=None) -> int:
     recsys = timed("8", run_recsys_serving, args.seed, device)
     serving = timed("9", run_multitenant_serving, args.seed)
     samplers = timed("10", run_samplers, args.seed)
+    tier = timed("11", run_shard_tier, args.seed)
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     # segment_sum is on no path: the two-tower pooling, its one user, runs
     # the gather-fused embedding_bag kernel, and phase 8 checks that it
@@ -3212,9 +3711,17 @@ def main(argv=None) -> int:
                 "flash_attention": lm["launches"]["flash_attention_tc"],
                 "flash_attention_f32": lm["launches_f32_prefill"]["flash_attention_tf32"],
                 **recsys["launches"],
-                "segment_sum": 0}
+                "segment_sum": 0,
+                "segment_fold": tier["11a"]["launches_exact"]["segment_fold"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    # pass II's fold on each of its paths: phase 6's programs and reconcile,
+    # 10c's counts, 10e's per_key_randomness, phase 11's exact mode
+    fold["launches_by_phase"] = {
+        "6": distributed["launches"]["segment_fold"],
+        "10c": samplers["launches"]["segment_fold"]["10c"],
+        "10e": samplers["launches"]["segment_fold"]["10e"],
+        "11": tier["11a"]["launches_exact"]["segment_fold"]}
     # phase 9's own path: the bank's launches per stacked step (a tick, or a
     # refresh's padded flush), the same for both runs
     for k in kernels[:2]:
@@ -3224,11 +3731,13 @@ def main(argv=None) -> int:
     # does not run it)
     for k in kernels:
         k["launches_phase10"] = samplers["launches"].get(
-            k["name"], dict.fromkeys(("10a", "10b", "10c", "10d"), 0))
+            k["name"], dict.fromkeys(("10a", "10b", "10c", "10d", "10e"), 0))
     idle = [k["name"] for k in kernels if not k["launches"] and k["name"] != "segment_sum"]
     idle += [f"{name} in {part}" for name, part in (("chunksort", "10a"), ("capscore_agg", "10a"),
                                                    ("capscore", "10c"), ("capscore_multi", "10d"))
              if not samplers["launches"][name][part]]
+    idle += [f"segment_fold in phase {part}" for part, n in fold["launches_by_phase"].items()
+             if not n]
     if idle:
         raise AssertionError(f"kernels launched no time on their paths: {idle}")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -3237,7 +3746,8 @@ def main(argv=None) -> int:
          "device_us_per_launch_phase2": device_us,
          "flash_attention_prefill_shape": flash_prefill,
          "segment_sum_serving_shapes": segsum_serving,
-         "embedding_bag_serving_shapes": bag_serving, "main_path": main_path,
+         "embedding_bag_serving_shapes": bag_serving, "segment_fold": fold_readings,
+         "shard_tier": tier, "main_path": main_path,
          "distributed": distributed, "lm_serving": lm, "recsys_serving": recsys,
          "multitenant_serving": serving, "samplers": samplers,
          "seconds": time.perf_counter() - t_start, "phase_seconds": phase_s},

@@ -339,15 +339,15 @@ def pass1_scored(keys, weights, eids, *, kind, l, salt, cap, chunk):
 def pass2_local(keys_shard, weights_shard, sampled_sorted):
     """This rank's exact weights of the sampled keys, before the sum over
     ranks.  ``sampled_sorted``: [kk] or per-lane [L, kk] sorted sampled
-    keys, EMPTY-padded (EMPTY sorts last); f32 weights of that shape.  The
-    scatter-add's atomics add in any order on a card, which is exact for
-    integer weights."""
+    keys, EMPTY-padded (EMPTY sorts last); f32 weights of that shape, each
+    summed in element order on any device (``VZ.fold_matches_``: the fold
+    kernel on a card), as the reference's ``.at[].add`` on the CPU."""
     kk = sampled_sorted.shape[-1]
     loc = torch.clamp(searchsorted(sampled_sorted, keys_shard), 0, kk - 1)
     match = (sampled_sorted.gather(-1, loc) == keys_shard) & is_live(keys_shard)
     local = torch.zeros(sampled_sorted.shape, dtype=torch.float32,
                         device=sampled_sorted.device)
-    return local.scatter_add_(-1, loc, torch.where(match, weights_shard, 0.0))
+    return VZ.fold_matches_(local, loc, match, weights_shard)
 
 
 def pass2_shard(keys_shard, weights_shard, sampled_sorted, *, group=None):

@@ -362,10 +362,9 @@ def init_pass2(lane_keys, *, device):
 def pass2_accumulate(skeys, acc, keys, weights=None):
     """Advance every lane's exact-weight accumulator by one stream batch
     (host arrays; keys validated by ``normalize_keys``), all lanes in one
-    searchsorted + scatter-add.  ``acc`` is advanced in place and returned
-    (the reference donates it).  f64 sums: on the CPU they add in element
-    order like ``np.add.at``; on a card the scatter-add's atomics add in any
-    order, which is exact for integer weights."""
+    searchsorted + fold.  ``acc`` is advanced in place and returned (the
+    reference donates it).  f64 sums in element order on any device, bit for
+    bit ``np.add.at`` (``VZ.fold_matches_``: the fold kernel on a card)."""
     keys = normalize_keys(keys)
     n = len(keys)
     w = (np.ones(n, np.float64) if weights is None
@@ -376,7 +375,7 @@ def pass2_accumulate(skeys, acc, keys, weights=None):
     wd = torch.from_numpy(w).to(skeys.device)
     loc = torch.clamp(searchsorted(skeys, kd), 0, skeys.shape[-1] - 1)
     match = skeys.gather(-1, loc) == kd
-    return acc.scatter_add_(-1, loc, torch.where(match, wd, 0.0))
+    return VZ.fold_matches_(acc, loc, match, wd)
 
 
 # ---------------------------------------------------------------------------

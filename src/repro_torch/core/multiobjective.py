@@ -36,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from ..kernels.embedding_bag.ops import segment_fold_
 from . import hashing as H
 from .freqfns import FreqFn
 from .incremental import resolve_device
@@ -70,10 +71,11 @@ def _uniform01_f64(h):
 def per_key_randomness(keys_stream, weights_stream, salt: int = 0, *, device=None):
     """``per_key_randomness_np`` on ``device`` (None: the CUDA card, raising
     without one): f64 element uniforms and Exp[w] components, the per-key
-    min and weight sum by ``scatter_reduce``.  Host arrays in and out, with
-    the keys' dtype; ``hx`` and the keys equal the plain version's, ``y``
-    and ``wx`` agree within f64 rounding (``log1p`` and the order of the
-    sums differ between devices)."""
+    min by ``scatter_reduce`` (min does not depend on the order), the weight
+    sums by ``segment_fold_`` in element order (the fold kernel on a card).
+    Host arrays in and out, with the keys' dtype; ``hx``, ``wx`` and the keys
+    equal the plain version's, ``y`` agrees within f64 rounding (``log1p``
+    differs between devices)."""
     device = resolve_device(device)
     keys_np = np.asarray(keys_stream)
     n = len(keys_np)
@@ -86,7 +88,7 @@ def per_key_randomness(keys_stream, weights_stream, salt: int = 0, *, device=Non
     ukeys, inv = torch.unique(kd, sorted=True, return_inverse=True)
     y = torch.full(ukeys.shape, math.inf, dtype=torch.float64, device=device)
     y = y.scatter_reduce(0, inv, v, reduce="amin", include_self=True)
-    wx = torch.zeros(ukeys.shape, dtype=torch.float64, device=device).index_add_(0, inv, w)
+    wx = segment_fold_(torch.zeros(ukeys.shape, dtype=torch.float64, device=device), inv, w)
     hx = _uniform01_f64(H.hash_combine(ukeys, SALT_KEYBASE, salt))
     return (ukeys.cpu().numpy().astype(keys_np.dtype), hx.cpu().numpy(),
             y.cpu().numpy(), wx.cpu().numpy())

@@ -25,6 +25,7 @@ import torch
 
 from ..kernels.capscore.ops import capscore, capscore_agg
 from ..kernels.capscore.ref import capscore_multi_ref
+from ..kernels.embedding_bag.ops import segment_fold_
 from . import hashing as H
 from .samplers import (
     SALT_BUCKET,
@@ -54,6 +55,20 @@ from .segments import (
 )
 
 INF = float("inf")
+
+
+def fold_matches_(acc, loc, match, w):
+    """Pass II's sum: ``acc[..., loc[..., i]] += w[i]`` where ``match``,
+    lane by lane (``acc`` [kk] or [L, kk], ``loc``/``match`` [n] or [L, n],
+    ``w`` [n] in ``acc``'s dtype), each slot in element order, in place,
+    through ``segment_fold_``: on the card the fold kernel (deterministic,
+    the bits of the reference's CPU ``.at[].add``), on the CPU its plain
+    version.  Returns ``acc``."""
+    kk = acc.shape[-1]
+    if acc.dim() == 2:
+        loc = loc + torch.arange(acc.shape[0], device=loc.device)[:, None] * kk
+    slot = torch.where(match, loc, acc.numel())
+    return segment_fold_(acc, slot.reshape(-1), w.expand(slot.shape).reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -767,7 +782,7 @@ def sample_two_pass(keys, weights=None, *, k, l, kind="continuous", salt=0,
     """Algorithm 1: pass I the exact bottom-(k+1) keys by seed, scored in
     batches of ``distributed.SCORE_BATCH`` elements (the ``capscore``
     kernel for continuous on a card); pass II the exact weights of the k
-    sampled keys (f64 sums: exact for integer weights on any device)."""
+    sampled keys (f64 sums in element order on any device: ``fold_matches_``)."""
     from . import distributed as DZ  # deferred: distributed imports this module
 
     ks, ws, eids, _ = _setup(keys, weights, chunk, device, l)
@@ -789,7 +804,7 @@ def sample_two_pass(keys, weights=None, *, k, l, kind="continuous", salt=0,
         loc = torch.clamp(searchsorted(sd, ks), 0, len(sampled) - 1)
         match = (sd[loc] == ks) & is_live(ks)
         acc = torch.zeros(len(sampled), dtype=torch.float64, device=ks.device)
-        counts = acc.scatter_add_(0, loc, torch.where(match, ws.double(), 0.0)).cpu().numpy()
+        counts = fold_matches_(acc, loc, match, ws.double()).cpu().numpy()
     return SampleResult(keys=sampled, counts=counts, tau=tau, l=l, kind=kind,
                         exact_weights=True)
 

@@ -35,6 +35,23 @@
 // shapes 13,107,200 x 256 f32 rows into 262,144 bags read 13.4 GB, 4.1 ms
 // at 3.35 TB/s.  A warp walks its segment serially, so a segment that holds
 // a large share of the rows (a Zipf-hot id) is walked by one warp alone.
+//
+// A second entry, `segment_fold_launch`, replaces no TPU kernel.  The
+// reference's pass II sums the sampled keys' weights with XLA's `.at[].add`,
+// which on the CPU adds in element order, bit for bit `np.add.at`; on a card
+// `scatter_add_` / `index_add_` add with atomics in an order that changes
+// from run to run, which is exact only for integer weights.  The entry was
+// added for determinism: acc[s] = (((acc[s] + v[i1]) + v[i2]) + ...) over
+// the rows i1 < i2 < ... of slot s, in acc's own dtype (f32 or f64), in
+// place -- a left fold, the same bits as the CPU's element-order fold, and
+// not segment_sum's "f64 sum rounded once", which would give other bits for
+// an f32 accumulator and across batches.  The wrapper groups the rows by a
+// stable sort of the slot ids (no host sync) and passes `perm` and the
+// ranges; one thread owns one slot and walks its range in order, FOLD_LOADS
+// loads in flight ahead of the dependent adds.  Bound by bytes (each value,
+// id and perm entry read once, acc read and written once), but a Zipf-hot
+// slot is walked by one thread alone, so a batch whose hottest key holds a
+// large share of the rows takes that one chain of dependent adds.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -122,6 +139,32 @@ cudaError_t launch(const void* vals, const int64_t* perm, const int64_t* offsets
   return cudaGetLastError();
 }
 
+
+constexpr int FOLD_THREADS = 256;
+constexpr int FOLD_LOADS = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(FOLD_THREADS)
+segment_fold_kernel(const T* __restrict__ vals, const int64_t* __restrict__ perm,
+                    const int64_t* __restrict__ offsets, int64_t S, T* __restrict__ acc) {
+  const int64_t s = int64_t(blockIdx.x) * FOLD_THREADS + threadIdx.x;
+  if (s >= S) return;
+  const int64_t lo = offsets[s];
+  const int64_t hi = offsets[s + 1];
+  if (lo == hi) return;
+  T a = acc[s];
+  int64_t i = lo;
+  for (; i + FOLD_LOADS <= hi; i += FOLD_LOADS) {
+    T v[FOLD_LOADS];
+#pragma unroll
+    for (int u = 0; u < FOLD_LOADS; ++u) v[u] = __ldg(vals + perm[i + u]);
+#pragma unroll
+    for (int u = 0; u < FOLD_LOADS; ++u) a = a + v[u];  // row order, one rounding each
+  }
+  for (; i < hi; ++i) a = a + __ldg(vals + perm[i]);
+  acc[s] = a;
+}
+
 }  // namespace
 
 // vals: [N, D] row-major, dtype 0 = f32, 1 = bf16, 2 = f16.  perm: [N]
@@ -149,4 +192,26 @@ extern "C" int segment_sum_launch(const void* vals, int dtype, const int64_t* pe
     return int(cudaErrorInvalidValue);
   }
   return int(err);
+}
+
+// vals: [N] in acc's dtype (0 = f32, 1 = f64).  perm: [N] int64 rows in
+// slot order (a stable sort of the slot ids).  offsets: [S + 1] int64, slot
+// s owns positions [offsets[s], offsets[s+1]) of perm.  acc: [S], folded in
+// place.  Returns the launch's CUDA error code.
+extern "C" int segment_fold_launch(const void* vals, int dtype, const int64_t* perm,
+                                   const int64_t* offsets, long long S, void* acc,
+                                   cudaStream_t stream) {
+  if (S <= 0) return 0;
+  const int64_t blocks = (S + FOLD_THREADS - 1) / FOLD_THREADS;
+  if (blocks > 2147483647LL) return int(cudaErrorInvalidConfiguration);
+  if (dtype == 0) {
+    segment_fold_kernel<float><<<unsigned(blocks), FOLD_THREADS, 0, stream>>>(
+        static_cast<const float*>(vals), perm, offsets, S, static_cast<float*>(acc));
+  } else if (dtype == 1) {
+    segment_fold_kernel<double><<<unsigned(blocks), FOLD_THREADS, 0, stream>>>(
+        static_cast<const double*>(vals), perm, offsets, S, static_cast<double*>(acc));
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
 }

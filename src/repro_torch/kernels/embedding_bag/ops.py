@@ -7,6 +7,8 @@ launches the kernel or raises.  There is no backend knob and no fallback.
 ``segment_sum`` launches ``kernels/csrc/segment_sum.cu``; ``embedding_bag``
 launches ``kernels/csrc/embedding_bag.cu``, which reads each bag's rows
 straight from the table (no gathered copy, no ``segment_sum``).
+``segment_fold_``, pass II's deterministic in-place sum, launches the second
+entry of ``segment_sum.cu``.
 """
 from __future__ import annotations
 
@@ -17,13 +19,16 @@ import functools
 import torch
 
 from .. import _build
-from .ref import embedding_bag_ref, segment_sum_ref  # noqa: F401
+from .ref import embedding_bag_ref, segment_fold_ref, segment_sum_ref  # noqa: F401
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # vals, dtype, perm, offsets, S, D, out, stream
     "segment_sum_launch": ([_P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
                             _P, _P], ctypes.c_int),
+    # vals, dtype, perm, offsets, S, acc, stream
+    "segment_fold_launch": ([_P, ctypes.c_int, _P, _P, ctypes.c_longlong, _P, _P],
+                            ctypes.c_int),
 }
 _LL = ctypes.c_longlong
 _BAG_SIGNATURES = {
@@ -34,6 +39,7 @@ _BAG_SIGNATURES = {
                              ctypes.c_int),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_FOLD_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
 def segment_sum(vals, seg_ids, *, n_segments: int):
@@ -50,18 +56,23 @@ def grouping(seg_ids, n_segments: int, *, sorted_ids: bool = False):
     ``perm`` (int64 [N]), or of the identity where ``perm`` is None.
 
     Non-decreasing ids are their own grouping (a bag's ids are); other ids
-    go through ``torch.sort(stable=True)`` with the out-of-range ones keyed
-    past the last segment, so every range leaves them out.  One host sync,
-    the test whether the ids are sorted, unless ``sorted_ids`` says they are
-    (then the ranges come from ``searchsorted`` alone, on the device)."""
-    keys, perm = seg_ids, None
+    go through ``sort_grouping``.  One host sync, the test whether the ids
+    are sorted, unless ``sorted_ids`` says they are (then the ranges come
+    from ``searchsorted`` alone, on the device)."""
     if (not sorted_ids and seg_ids.shape[0] > 1
             and bool((seg_ids[1:] < seg_ids[:-1]).any())):
-        in_range = (seg_ids >= 0) & (seg_ids < n_segments)
-        keys, perm = torch.sort(torch.where(in_range, seg_ids, n_segments), stable=True)
-    offsets = torch.searchsorted(keys.contiguous(),
-                                 _boundaries(n_segments, keys.dtype, keys.device))
-    return perm, offsets
+        return sort_grouping(seg_ids, n_segments)
+    return None, torch.searchsorted(seg_ids.contiguous(),
+                                    _boundaries(n_segments, seg_ids.dtype, seg_ids.device))
+
+
+def sort_grouping(seg_ids, n_segments: int):
+    """``grouping`` by ``torch.sort(stable=True)`` always, with the
+    out-of-range ids keyed past the last segment, so every range leaves
+    them out: no host sync."""
+    in_range = (seg_ids >= 0) & (seg_ids < n_segments)
+    keys, perm = torch.sort(torch.where(in_range, seg_ids, n_segments), stable=True)
+    return perm, torch.searchsorted(keys, _boundaries(n_segments, keys.dtype, keys.device))
 
 
 @functools.lru_cache(maxsize=32)
@@ -107,6 +118,54 @@ def segment_sum_cuda(vals, seg_ids, *, n_segments: int):
 
 
 segment_sum_cuda.launches = 0
+
+
+def segment_fold_(acc, slot, vals):
+    """``acc.view(-1)[s] = (((acc[s] + vals[i1]) + vals[i2]) + ...)`` over
+    the rows ``i1 < i2 < ...`` with ``slot == s``, in ``acc``'s dtype, in
+    place (rows whose slot lies outside ``[0, acc.numel())`` are dropped):
+    pass II's sum in element order, the bits of the reference's CPU
+    ``.at[].add``.  A CPU tensor runs the plain version, a CUDA tensor the
+    kernel.  Returns ``acc``."""
+    if acc.device.type == "cpu":
+        return segment_fold_ref(acc, slot, vals)
+    return segment_fold_cuda(acc, slot, vals)
+
+
+def segment_fold_cuda(acc, slot, vals):
+    """The fold kernel over ``sort_grouping(slot)``: one thread per slot
+    walks its rows in order; no atomics, no host sync."""
+    dev = acc.device
+    if dev.type != "cuda" or slot.device != dev or vals.device != dev:
+        raise ValueError(f"segment_fold_cuda needs CUDA tensors on one device, got "
+                         f"{dev}, {slot.device} and {vals.device}")
+    if acc.dtype not in _FOLD_DTYPES or vals.dtype != acc.dtype:
+        raise ValueError(f"segment_fold_cuda folds float32 or float64 values into an "
+                         f"accumulator of their dtype, got {vals.dtype} into {acc.dtype}")
+    if not acc.is_contiguous():
+        raise ValueError("segment_fold_cuda folds into a contiguous accumulator")
+    if slot.dim() != 1 or vals.dim() != 1 or slot.shape[0] != vals.shape[0]:
+        raise ValueError(f"slot and vals must be [N], got {tuple(slot.shape)} and "
+                         f"{tuple(vals.shape)}")
+    if slot.dtype != torch.int64:
+        raise ValueError(f"slot must be int64, got {slot.dtype}")
+    S = acc.numel()
+    if S == 0 or slot.shape[0] == 0:
+        return acc
+    perm, offsets = sort_grouping(slot, S)
+    vals = vals.contiguous()
+    lib = _build.load("segment_sum", _SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.segment_fold_launch(vals.data_ptr(), _FOLD_DTYPES[acc.dtype],
+                                     perm.data_ptr(), offsets.data_ptr(), S,
+                                     acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_fold kernel launch failed: CUDA error {rc}")
+    segment_fold_cuda.launches += 1
+    return acc
+
+
+segment_fold_cuda.launches = 0
 
 
 def embedding_bag(table, ids, bag_segments, *, n_bags: int, mode: str = "sum",

@@ -9,6 +9,12 @@ of rows differ far beyond f32 rounding, so neither would be a yardstick
 for the other.)  On the CPU ``index_add_`` adds the rows in ascending order, the
 kernel's own order; on the card it adds with atomics, in an order that
 changes from run to run, below the f32 rounding.
+
+``segment_fold_ref`` is the plain version of pass II's deterministic sum
+(``ops.segment_fold_``): ``index_add_`` of the in-range rows into the
+accumulator itself, in its own dtype.  On the CPU ``index_add_`` adds the
+rows in ascending order, a left fold, bit for bit ``np.add.at`` and the
+kernel's order; on the card it adds with atomics.
 """
 from __future__ import annotations
 
@@ -22,6 +28,16 @@ def segment_sum_ref(vals, seg_ids, *, n_segments: int):
     ok = (seg_ids >= 0) & (seg_ids < n_segments)
     out = torch.zeros((n_segments, vals.shape[1]), dtype=torch.float64, device=vals.device)
     return out.index_add_(0, seg_ids[ok].long(), vals[ok].double()).float()
+
+
+def segment_fold_ref(acc, slot, vals):
+    """acc.view(-1)[s] += vals[n] for every row n with slot[n] == s, in row
+    order and in ``acc``'s dtype, in place; rows whose slot lies outside
+    [0, acc.numel()) are dropped.  Returns ``acc``."""
+    flat = acc.view(-1)
+    ok = (slot >= 0) & (slot < flat.numel())
+    flat.index_add_(0, slot[ok].long(), vals[ok].to(acc.dtype))
+    return acc
 
 
 def embedding_bag_ref(table, ids, bag_segments, *, n_bags: int, mode: str = "sum",

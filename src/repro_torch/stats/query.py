@@ -67,6 +67,15 @@ class BatchResult:
     ci_high: np.ndarray     # [Q] f64 normal-approx 95% upper bound
     n_keys: np.ndarray      # [Q] i32 sampled keys inside the segment
     lanes: np.ndarray       # [Q] f64 the l each query was answered from
+    # degraded-mode provenance (stats.shardtier): a healthy single service
+    # answers with the defaults -- coverage 1, nothing stale.  A sharded tier
+    # answering from a subset of shards stamps the routed-element coverage
+    # fraction, the count of elements routed to shards it could not reach,
+    # the degraded flag, and how the answer was produced.
+    coverage: float = 1.0         # routed elements reachable / routed total
+    staleness_elements: int = 0   # routed elements missing from the answer
+    degraded: bool = False        # True iff answered from a partial tier
+    mode: str = "sketch"          # "sketch" | "approx" | "exact" | "snapshot"
 
     def __len__(self) -> int:
         return len(self.estimates)

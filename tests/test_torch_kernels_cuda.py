@@ -37,8 +37,13 @@ on the card (``capscore_agg`` at L = 1 on fixed-tau chunks, the chunk steps
 of ``IncrementalSampler``, the one-shot samplers, the reference multi-l
 route, ``per_key_randomness``): the kernels' launches counted per chunk
 step, two runs bit-identical, and against the same calls on the CPU under
-the same rules (keys and hash-only values exact; f64 ``y``/``wx`` of
-``per_key_randomness`` within 2 ulp).
+the same rules (keys and hash-only values exact; f64 ``y`` of
+``per_key_randomness`` within 2 ulp, ``wx`` exact).
+``segment_fold_`` (pass II's sum): bit for bit the plain version on the
+CPU (the element-order fold), two launches bit-identical; no pass-II site
+adds with ``scatter_add_`` / ``index_add_`` on a CUDA tensor; the shard
+tier's exact mode on the card twice bit-identical, its accumulators equal
+to ``np.add.at`` over the WALs.
 """
 import numpy as np
 import pytest
@@ -902,9 +907,9 @@ def test_reference_multi_route_on_the_card():
 
 def test_per_key_randomness_on_the_card():
     """f64 torch on the card against the numpy plain version: keys and hx
-    exact, y within 2 f64 ulp; wx exact for unit weights, and for other
-    weights within rtol 1e-12 (the card's ``index_add_`` adds a key's
-    weights with atomics in any order, numpy in element order)."""
+    exact, y within 2 f64 ulp; wx bit for bit for unit and fractional
+    weights (the fold kernel adds each key's weights in element order, as
+    ``np.add.at``)."""
     _require_cuda()
     from repro_torch.core import multiobjective as TM
 
@@ -915,7 +920,148 @@ def test_per_key_randomness_on_the_card():
         want = TM.per_key_randomness_np(keys, weights, SALT)
         assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
         assert np.all(np.abs(got[2] - want[2]) <= 2 * np.spacing(np.abs(want[2])))
-        if weights is None:
-            assert np.array_equal(got[3], want[3])
-        else:
-            np.testing.assert_allclose(got[3], want[3], rtol=1e-12, atol=0)
+        assert np.array_equal(got[3], want[3])
+
+
+FOLD_CASES = ["f32", "f64", "empty_slots", "one_row", "many_rows", "hot_slot_2p20",
+              "dropped_ids", "from_nonzero_2d"]
+
+
+def _fold_case(case):
+    """(acc, slot, vals) on the host: fractional values, so the sums are
+    exact in no order but the element order."""
+    rng = np.random.default_rng(FOLD_CASES.index(case) + 50)
+    dtype = np.float32 if case == "f32" else np.float64
+    S, n = 4096, 100_000
+    if case == "empty_slots":
+        S, n = 1 << 16, 3000
+    elif case == "one_row":
+        n = 1
+    elif case == "many_rows":
+        S = 16
+    elif case == "hot_slot_2p20":  # phase 3's Zipf(1.2): the hottest key ~18% of 2^20
+        n = 1 << 20
+    slot = rng.integers(0, S, n)
+    if case == "hot_slot_2p20":
+        slot = (rng.zipf(1.2, n) - 1) % S
+    elif case == "dropped_ids":
+        slot = rng.integers(-100, S + 100, n)
+    vals = (rng.random(n) * 3 + 0.05).astype(dtype)
+    acc = np.zeros(S, dtype)
+    if case == "from_nonzero_2d":
+        acc = rng.random(S).astype(dtype).reshape(4, S // 4)
+    return acc, slot.astype(np.int64), vals
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+def test_segment_fold_kernel_matches_plain_bit_for_bit(case):
+    _require_cuda()
+    acc, slot, vals = _fold_case(case)
+    want = eops.segment_fold_ref(torch.from_numpy(acc.copy()), torch.from_numpy(slot),
+                                 torch.from_numpy(vals))
+    s, v = torch.from_numpy(slot).cuda(), torch.from_numpy(vals).cuda()
+    before = eops.segment_fold_cuda.launches
+    got = torch.from_numpy(acc.copy()).cuda()
+    out = eops.segment_fold_(got, s, v)
+    again = eops.segment_fold_cuda(torch.from_numpy(acc.copy()).cuda(), s, v)
+    torch.cuda.synchronize()
+    assert out is got and eops.segment_fold_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_segment_fold_cuda_refuses_what_the_kernel_does_not_take():
+    _require_cuda()
+    acc = torch.zeros(8, dtype=torch.float64, device="cuda")
+    slot = torch.zeros(4, dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        eops.segment_fold_cuda(acc, slot, torch.ones(4, device="cuda"))
+    with pytest.raises(ValueError, match="int64"):
+        eops.segment_fold_cuda(acc, slot.int(), torch.ones(4, dtype=torch.float64,
+                                                           device="cuda"))
+    with pytest.raises(ValueError, match="one device"):
+        eops.segment_fold_cuda(acc, slot.cpu(), torch.ones(4, dtype=torch.float64,
+                                                           device="cuda"))
+
+
+def test_no_pass2_site_adds_with_atomics_on_the_card(monkeypatch):
+    """The four pass-II sites on the card: ``scatter_add_`` / ``index_add_``
+    on a CUDA tensor raise here, and each site launches the fold."""
+    _require_cuda()
+    from repro_torch.core import distributed as TD
+    from repro_torch.core import incremental as TI
+    from repro_torch.core import multiobjective as TM
+    from repro_torch.core import vectorized as TV
+
+    real = {name: getattr(torch.Tensor, name) for name in ("scatter_add_", "index_add_")}
+
+    def guard(name):
+        def add(self, *args, **kwargs):
+            if self.is_cuda:
+                raise AssertionError(f"{name} on a CUDA tensor")
+            return real[name](self, *args, **kwargs)
+        return add
+
+    for name in real:
+        monkeypatch.setattr(torch.Tensor, name, guard(name))
+    rng = np.random.default_rng(7)
+    keys = (rng.zipf(1.2, 20_000) % 500).astype(np.int64) + 1
+    w = (rng.random(len(keys)) * 3 + 0.05).astype(np.float32)
+    lane_keys = [np.sort(np.unique(keys[j::3])[:40]).astype(np.int32) for j in range(2)]
+    launches = []
+    tk, tacc = TI.init_pass2(lane_keys, device="cuda")
+    for site in (lambda: TI.pass2_accumulate(tk, tacc, keys, w),
+                 lambda: TD.pass2_local(torch.from_numpy(keys.astype(np.int32)).cuda(),
+                                        torch.from_numpy(w).cuda(), tk),
+                 lambda: TV.sample_two_pass(keys, w, k=50, l=1, kind="distinct", chunk=256),
+                 lambda: TM.per_key_randomness(keys, w, 1)):
+        before = eops.segment_fold_cuda.launches
+        site()
+        torch.cuda.synchronize()
+        launches.append(eops.segment_fold_cuda.launches - before)
+    assert launches == [1, 1, 1, 1]
+    cpu_tk, cpu_acc = TI.init_pass2(lane_keys, device="cpu")
+    TI.pass2_accumulate(cpu_tk, cpu_acc, keys, w)
+    assert torch.equal(tacc.cpu(), cpu_acc)
+
+
+def test_shard_tier_exact_mode_on_the_card(tmp_path):
+    """The in-process shard tier on the card with fractional weights: exact
+    mode twice bit-identical, its pass-II accumulators bit for bit
+    ``np.add.at`` over the shards' WALs, its answers within rtol 1e-5 of
+    the same tier on the CPU (coverage and counts exact)."""
+    _require_cuda()
+    from repro_torch.core import freqfns
+    from repro_torch.stats.query import Query
+    from repro_torch.stats.service import StatsConfig
+    from repro_torch.stats.shardtier import ShardTier, TierConfig
+
+    cfg = StatsConfig(k=256, ls=(1.0, 16.0), chunk=256)
+    rng = np.random.default_rng(11)
+    keys = (rng.zipf(1.2, 1 << 16) % 5000).astype(np.int64) + 1
+    w = (rng.random(len(keys)) * 3 + 0.05).astype(np.float32)
+    queries = [Query(freqfns.cap(T)) for T in (1.0, 16.0)] + [Query(freqfns.total())]
+    tiers = {dev: ShardTier(cfg, TierConfig(n_shards=3, retain_wal=True), tmp_path / dev,
+                            device=dev) for dev in ("cuda", "cpu")}
+    for lo in range(0, len(keys), 1 << 13):
+        for t in tiers.values():
+            t.ingest(keys[lo:lo + (1 << 13)], w[lo:lo + (1 << 13)])
+    tier = tiers["cuda"]
+    first = tier.query_batch(queries, mode="exact")
+    acc_first = tier._merged_exact()._recon_acc.clone()
+    tier._bump()  # drop the cached merge: the second answer is rebuilt
+    second = tier.query_batch(queries, mode="exact")
+    scratch = tier._merged_exact()
+    assert torch.equal(acc_first, scratch._recon_acc)
+    assert np.array_equal(first.estimates, second.estimates)
+    lanes = scratch._lanes
+    want = np.zeros(tuple(scratch._recon_acc.shape))
+    for s in range(3):
+        for _, kk, ww in tier.workers[s].wal.entries():
+            for j, lane in enumerate(lanes):
+                m = np.isin(kk, lane.keys)
+                np.add.at(want[j], np.searchsorted(lane.keys, kk[m]), ww[m].astype(np.float64))
+    assert np.array_equal(scratch._recon_acc.cpu().numpy(), want)
+    cpu = tiers["cpu"].query_batch(queries, mode="exact")
+    np.testing.assert_allclose(first.estimates, cpu.estimates, rtol=1e-5)
+    assert first.coverage == cpu.coverage == 1.0
